@@ -1,4 +1,4 @@
-"""tpu-sqz: a TPU-native lossless compression framework.
+"""tpu-sqz: a block-parallel lossless compression framework for an accelerator.
 
 Implements the two wire formats of the reference C library leok7v/sqz —
 the DEFLATE-like adaptive-Huffman ``squeeze`` format
@@ -8,7 +8,8 @@ format (reference inc/sqz/sqz.h + src/sqz.c) — plus a new block-parallel
 
 * ``sqz_tpu.oracle``  — scalar pure-Python reference (the differential oracle)
 * ``sqz_tpu.native``  — C++ host runtime (fast CPU path, ctypes-bound)
-* ``sqz_tpu.ops``     — JAX/XLA/Pallas TPU kernels (block-parallel)
+* ``sqz_tpu.ops``     — the device path: JAX/XLA and the CUDA coders through
+  ``jax.ffi`` (block-parallel; ``engine="tpu"``)
 
 See FORMAT.md for the normative wire-format spec.
 """

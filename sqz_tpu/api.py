@@ -3,7 +3,8 @@
 Engines:
   * ``oracle`` — scalar pure-Python (always available; slow; the ground truth)
   * ``native`` — C++ host runtime via ctypes (fast CPU path)
-  * ``tpu``    — JAX block-parallel kernels (requires the sqzt container)
+  * ``tpu``    — the device engine: the CUDA coders through jax.ffi on a
+                 GPU (their CPU build elsewhere); requires the sqzt container
 
 Single-block formats mirror the reference containers exactly; the ``sqzt``
 container (blocks=True) is the parallel framing all engines share.
@@ -54,7 +55,7 @@ def compress(data: bytes, fmt: Format | str = Format.SQUEEZE,
     higher ratio on drifting or long-period data for ~beam× encode cost.
 
     ``parse`` ('auto' | 'fast' | 'exact'; sqz4, blocks=True): the sqzt
-    container's contract is round-trip + ratio, so the TPU pipeline
+    container's contract is round-trip + ratio, so the device engine
     defaults to the bounded approximate matcher ('fast', ~20x planning
     throughput, ratio within ~0.5 pp); 'exact' restores the
     reference-semantics parse (streams byte-identical to the native
@@ -147,7 +148,7 @@ def _encoder_for(fmt, engine, win_bits, lz, parse="exact"):
 
 def _host_parse(parse: str, engine) -> str:
     """Parse policy for host-engine sqzt paths (mirrors
-    sqz4_pallas.parse_mode for the device path): 'auto' = fast on the TPU
+    coder.parse_mode for the device path): 'auto' = fast on the device
     engine (its sqzt contract is round-trip + ratio), exact on native/
     oracle (cross-engine bit-identical defaults). SQZ_PARSE overrides."""
     import os
@@ -163,8 +164,9 @@ def _compress_anchored(parts, fmt, engine, win_bits, lz, beam,
                        parse="auto"):
     """sqzt v3 planner entry (FORMAT.md §3.2). The beam planner runs on
     a host engine; per-block payloads are engine-bit-identical (the
-    cross-engine invariant), hence a TPU caller gets byte-identical
-    containers from the native fast path. ``parse``: the TPU engine
+    cross-engine invariant), hence a device-engine caller gets
+    byte-identical containers from the native fast path. ``parse``: the
+    device engine
     defaults to the ~5x-cheaper bounded matcher for pricing AND payloads
     (still engine-bit-identical — both run the same native code); host
     engines default to exact.
@@ -256,14 +258,14 @@ def _compress_blocks(parts, fmt, engine, win_bits, lz, warm=False,
 
 
 def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
-                      checksum: bool = False,
-                      interpret: bool = False, mesh=None,
+                      checksum: bool = False, mesh=None,
                       lanes: int = None) -> bytes:
     """Compress bytes OR a device-resident 1-D uint8 array into a
     standard ``sqzt`` container via the zero-host-planning resident path
     (ops/resident.py): literal-only reference HEAD semantics
     (src/sqz.c:591) with, in ``mode="rle"``, the device periodic cell
-    parse layered on top. For TPU-resident data (checkpoint shards,
+    parse layered on top, and in ``mode="lz"`` the device LZ parse
+    (ops/lzparse.py). For device-resident data (checkpoint shards,
     activation buffers) nothing but the compressed payload bytes crosses
     the host link. The result decodes with every engine
     (``decompress`` / ``decompress_range``).
@@ -274,30 +276,21 @@ def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
 
     ``mesh``: a jax.sharding.Mesh — blocks shard over it and every
     device parses + codes its own shards in parallel
-    (parallel/shard.encode_resident_sharded). ``lanes``: the lane-group
-    width per kernel call (per-device under a mesh); None = the path's
-    default. In a multi-process mesh only process 0 receives the
+    (parallel/shard.encode_resident_sharded). ``lanes``: the blocks per
+    encoder call (per-device under a mesh); None = the path's default. In a multi-process mesh only process 0 receives the
     container (returns None elsewhere).
     """
-    import os as _os
-
-    from sqz_tpu.ops import resident
-    if not 1 <= blk_bits <= 16:
-        raise ValueError("resident paths support blk_bits 1..16 "
-                         "(sqz4 TPU kernel range)")
-    interpret = interpret or _os.environ.get(
-        "SQZ_RESIDENT_INTERPRET") == "1"    # off-TPU testing hook
+    from sqz_tpu.ops import coder, resident
+    resident.check_blk_bits(blk_bits)
     if mesh is not None:
         from sqz_tpu.parallel.shard import encode_resident_sharded
         payloads = encode_resident_sharded(data, blk_bits, mesh, mode,
-                                           lanes or 128, interpret)
+                                           lanes or coder.ENC_LANES)
         if payloads is None:                # non-zero process of the mesh
             return None
     else:
-        from sqz_tpu.ops import sqz4_pallas as _sp
         payloads = resident.encode_resident_blocks(
-            data, blk_bits, mode, lanes=lanes or _sp.ENC_LANES,
-            interpret=interpret)
+            data, blk_bits, mode, lanes=lanes or coder.ENC_LANES)
     if isinstance(data, (bytes, bytearray, memoryview)):
         raw = bytes(data)
         osize = len(raw)
@@ -314,17 +307,17 @@ def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
                      csum)
 
 
-def decompress_resident(blob: bytes, interpret: bool = False, mesh=None,
-                        lanes: int = None, assembly: str = "auto"):
+def decompress_resident(blob: bytes, mesh=None, lanes: int = None,
+                        assembly: str = "auto"):
     """Restore path for compress_resident: decode an sqzt sqz4 container
     to a DEVICE-RESIDENT 1-D uint8 array with zero host byte assembly —
-    the standard decode kernel plus an on-device assembly
+    the device decoder plus an on-device assembly
     (ops/resident.py): the three-pass cell assembly for cell-parsed
     streams (mode="lit"/"rle" containers) and the exact general assembly
     (ops/lz_restore.py — compaction sort + pointer doubling) for
     everything else, incl. ``compress_resident(mode="lz")`` containers
     and foreign spec-valid streams. ``assembly``: "auto" (cell first,
-    general for the rest), "cell", or "general"; only kernel-flagged
+    general for the rest), "cell", or "general"; only decoder-flagged
     corrupt blocks ever reach the host decoder.
 
     The container checksum is NOT verified here (hashing would require
@@ -333,17 +326,14 @@ def decompress_resident(blob: bytes, interpret: bool = False, mesh=None,
 
     ``mesh``: restore with blocks sharded over the mesh instead (each
     device assembles its own shards; parallel/shard mirror)."""
-    import os as _os
-
-    from sqz_tpu.ops import resident
-    interpret = interpret or _os.environ.get(
-        "SQZ_RESIDENT_INTERPRET") == "1"
+    from sqz_tpu.ops import coder, resident
     if mesh is not None:
+        if assembly != "auto":
+            raise ValueError("a mesh restore always uses assembly='auto'")
         from sqz_tpu.parallel.shard import decompress_resident_sharded
-        return decompress_resident_sharded(blob, mesh, lanes or 128,
-                                           interpret)
-    return resident.decompress_resident(blob, lanes=lanes or 512,
-                                        interpret=interpret,
+        return decompress_resident_sharded(blob, mesh,
+                                           lanes or coder.DEC_LANES)
+    return resident.decompress_resident(blob, lanes=lanes or coder.DEC_LANES,
                                         assembly=assembly)
 
 

@@ -26,23 +26,38 @@ _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 
 
+def build_locked(make_args, outputs, sources, directory: Path = _DIR):
+    """Run ``make -C <directory> <make_args>`` unless every output is
+    newer than every source, holding an exclusive lock on the Makefile so
+    concurrent processes (test workers) never load a half-written
+    library. Raises CalledProcessError / FileNotFoundError on failure."""
+    import fcntl
+
+    def fresh():
+        return all(o.exists() for o in outputs) and all(
+            o.stat().st_mtime >= s.stat().st_mtime
+            for o in outputs for s in sources if s.exists())
+
+    if fresh():
+        return
+    with open(directory / "Makefile") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if not fresh():
+            subprocess.run(["make", "-C", str(directory)] + list(make_args),
+                           check=True, capture_output=True, text=True)
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _build_error
     with _lock:
         if _lib is not None or _build_error is not None:
             return _lib
-        src_cpp = _DIR / "sqz_native.cpp"
-        # a prebuilt .so without the source alongside (binary wheel) is fine
-        stale = (src_cpp.exists()
-                 and _SO.exists()
-                 and _SO.stat().st_mtime < src_cpp.stat().st_mtime)
-        if not _SO.exists() or stale:
-            try:
-                subprocess.run(["make", "-C", str(_DIR)], check=True,
-                               capture_output=True, text=True)
-            except (subprocess.CalledProcessError, FileNotFoundError) as e:
-                _build_error = getattr(e, "stderr", str(e)) or str(e)
-                return None
+        try:
+            build_locked(["libsqznative.so"], [_SO],
+                         [_DIR / "sqz_native.cpp", _DIR / "sqz4_coder.h"])
+        except (subprocess.CalledProcessError, FileNotFoundError) as e:
+            _build_error = getattr(e, "stderr", str(e)) or str(e)
+            return None
         lib = ctypes.CDLL(str(_SO))
         i64, u64, i32, u32 = (ctypes.c_int64, ctypes.c_uint64,
                               ctypes.c_int32, ctypes.c_uint32)
@@ -92,18 +107,9 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.sqz_assemble_blocks.argtypes = [u32p, u64, u8p, u64, u32p, u64,
                                             i64p, i64p, u64, i32, u8p, u64,
                                             u8p, u64]
-        lib.sqz4_plan_pack.restype = i64
-        lib.sqz4_plan_pack.argtypes = [u8p, u64, u32, i32, i32, u64, u64,
-                                       i32, i32, i32, u32p, u32p, u32p, i64p]
-        lib.squeeze_plan_pack.restype = i64
-        lib.squeeze_plan_pack.argtypes = [u8p, u64, i32, i32, u64, u64,
-                                          i32, i32, i32, u32p]
-        lib.sqz4_fast_plan.restype = i64
-        lib.sqz4_fast_plan.argtypes = [u8p, u64, u32, i32, i32, u64, i32,
-                                       i32, i32, i32, u32p, u8p, u8p, i64p]
         lib.sqz4_tok_plan.restype = i64
         lib.sqz4_tok_plan.argtypes = [u8p, u64, u32, i32, i32, u64, u64,
-                                      i32, i32, u32p, u8p, i64p]
+                                      i32, i32, i32, u32p, u32p, u8p, i64p]
         lib.sqz_fnv1a64.restype = u64
         lib.sqz_fnv1a64.argtypes = [u8p, u64]
         lib.sqz4_pack_payloads.restype = i64
@@ -120,6 +126,13 @@ def available() -> bool:
 def build_error() -> Optional[str]:
     _load()
     return _build_error
+
+
+def require():
+    """Raise naming the failed build when the library is unavailable."""
+    if _load() is None:
+        raise RuntimeError(f"building libsqznative.so (make -C {_DIR}) "
+                           f"failed:\n{_build_error}")
 
 
 def _u8(buf) -> ctypes.POINTER(ctypes.c_uint8):
@@ -469,7 +482,7 @@ def blocks_decompress(payloads: List[bytes], total_size: int, fmt: int,
 def assemble_blocks(tok: np.ndarray, lit: np.ndarray, mrec: np.ndarray,
                     ntok: np.ndarray, sizes: np.ndarray, out_stride: int,
                     nthreads: int = 0, dictionary: bytes = b"") -> np.ndarray:
-    """Reconstruct decode-kernel record streams: [B, *] row-major arrays
+    """Reconstruct the device decoder's record streams: [B, *] row-major arrays
     (tok u32 words, lit u8 bytes, mrec u32 records) -> [B, out_stride] u8.
     ``dictionary``: shared warm preset history match records may reach
     into (FORMAT.md §3.1)."""
@@ -494,85 +507,18 @@ def assemble_blocks(tok: np.ndarray, lit: np.ndarray, mrec: np.ndarray,
     return out
 
 
-def sqz4_plan_pack(data: bytes, window: int, blk_bits: int, lz: bool,
-                   lanes: int, tp_cap: int, nthreads: int = 0,
-                   warm: bool = False, paired: bool = False):
-    """Tokenize + expand + pack the encoder op streams in one threaded pass.
-
-    Returns (m_words, s_words [G, tp_cap//4, lanes] u32, max_ops[, seed]).
-    With ``warm`` (sqzt v2): blocks 1+ tokenize against block 0's tail
-    dictionary and the returned seed (oracle ModelSeed) holds block 0's
-    final rescaled model state for the device tables. ``paired``: insert
-    alignment pads so every op pair fits the fused kernel's grammar
-    (256-table ops only in slot 2)."""
-    lib = _load()
-    n = len(data)
-    bs = 1 << blk_bits
-    nblocks = max(1, (n + bs - 1) // bs)
-    G = -(-nblocks // lanes)
-    tp_rows = tp_cap // 4
-    src = np.frombuffer(data, dtype=np.uint8) if data else np.zeros(1, np.uint8)
-    m_words = np.full((G, tp_rows, lanes), 0xFFFFFFFF, dtype=np.uint32)
-    s_words = np.zeros((G, tp_rows, lanes), dtype=np.uint32)
-    counts = np.zeros(nblocks, dtype=np.int64)
-    seed_out = np.zeros(SEED4_WORDS, dtype=np.uint32) if warm else None
-    u32p = ctypes.POINTER(ctypes.c_uint32)
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    mx = _check(lib.sqz4_plan_pack(
-        _u8(src), n, window, blk_bits, int(lz), lanes, tp_cap, nthreads,
-        int(warm), int(paired),
-        _u32p(seed_out) if seed_out is not None else None,
-        m_words.ctypes.data_as(u32p), s_words.ctypes.data_as(u32p),
-        counts.ctypes.data_as(i64p)))
-    if warm:
-        return m_words, s_words, mx, _seed4_out(seed_out)
-    return m_words, s_words, mx
-
-
-def sqz4_fast_plan(data: bytes, window: int, blk_bits: int, lz: bool,
-                   tp_cap: int, nthreads: int = 0, warm: bool = False,
-                   paired: bool = False, depth: int = 32):
-    """Fast approximate planning pass for the sqzt TPU pipeline: bounded
-    match search (exact distances 1..7 + depth-limited 4-gram chains) with
-    CONTIGUOUS per-block op emission — the cache-hostile device-layout
-    transpose stays on the TPU (sqz4_pallas._pack_ops_device).
-
-    Returns (m8, s8 [nblocks, tp_cap] u8, max_ops[, seed]). Streams are
-    spec-valid sqz4 but NOT byte-identical to the exact parse; intended for
-    the sqzt container where the contract is round-trip + ratio
-    (FORMAT.md §3)."""
-    lib = _load()
-    n = len(data)
-    bs = 1 << blk_bits
-    nblocks = max(1, (n + bs - 1) // bs)
-    src = np.frombuffer(data, dtype=np.uint8) if data else np.zeros(1, np.uint8)
-    m8 = np.full((nblocks, tp_cap), 255, dtype=np.uint8)
-    s8 = np.zeros((nblocks, tp_cap), dtype=np.uint8)
-    counts = np.zeros(nblocks, dtype=np.int64)
-    seed_out = np.zeros(SEED4_WORDS, dtype=np.uint32) if warm else None
-    i64p = ctypes.POINTER(ctypes.c_int64)
-    mx = _check(lib.sqz4_fast_plan(
-        _u8(src), n, window, blk_bits, int(lz), tp_cap, nthreads,
-        int(warm), int(paired), depth,
-        _u32p(seed_out) if seed_out is not None else None,
-        _u8(m8), _u8(s8), counts.ctypes.data_as(i64p)))
-    if warm:
-        return m8, s8, mx, _seed4_out(seed_out)
-    return m8, s8, mx
-
-
 def sqz4_tok_plan(data: bytes, window: int, blk_bits: int, lz: bool,
                   tok_cap: int, lit_cap: int, nthreads: int = 0,
-                  depth: int = 32):
-    """Token-level fast planning for the token-input encoder kernel
-    (PERF.md round 3): one u32 token per parse decision + a dense literal
-    byte stream — ~4x less host->device traffic than the micro-op layout.
+                  depth: int = 32, warm: bool = False):
+    """Token planning for the device encoder (ops/coder.py): one u32 token
+    per parse decision plus the dense literal bytes, per block.
+    ``depth`` > 0: bounded matcher with that many hash-chain links;
+    0: the exact reference-semantics matcher. ``warm`` (sqzt v2): blocks
+    1+ match into block 0's tail and the returned seed holds block 0's
+    final rescaled model state.
 
     Returns (toks [nblocks, tok_cap] u32, lits [nblocks, lit_cap] u8,
-    counts [nblocks, 3] i64 (n_tok, n_lit, n_pairs), max_pairs).
-    A block that exceeds the caps gets counts[b, 2] == -1 (and does not
-    contribute to max_pairs); callers route those blocks through
-    sqz4_fast_plan + the op-stream kernel (ops/pipeline.py does)."""
+    counts [nblocks, 2] i64 (n_tok, n_lit), max n_tok, seed or None)."""
     lib = _load()
     n = len(data)
     bs = 1 << blk_bits
@@ -580,17 +526,20 @@ def sqz4_tok_plan(data: bytes, window: int, blk_bits: int, lz: bool,
     src = np.frombuffer(data, dtype=np.uint8) if data else np.zeros(1, np.uint8)
     toks = np.zeros((nblocks, tok_cap), dtype=np.uint32)
     lits = np.zeros((nblocks, lit_cap), dtype=np.uint8)
-    counts = np.zeros((nblocks, 3), dtype=np.int64)
+    counts = np.zeros((nblocks, 2), dtype=np.int64)
+    seed_out = np.zeros(SEED4_WORDS, dtype=np.uint32) if warm else None
     i64p = ctypes.POINTER(ctypes.c_int64)
     mx = _check(lib.sqz4_tok_plan(
         _u8(src), n, window, blk_bits, int(lz), tok_cap, lit_cap, nthreads,
-        depth, _u32p(toks), _u8(lits), counts.ctypes.data_as(i64p)))
-    return toks, lits, counts, mx
+        depth, int(warm), _u32p(seed_out) if seed_out is not None else None,
+        _u32p(toks), _u8(lits), counts.ctypes.data_as(i64p)))
+    seed = _seed4_out(seed_out) if warm else None
+    return toks, lits, counts, mx, seed
 
 
 def sqz4_pack_payloads(payloads, lanes: int, pw: int,
                        nthreads: int = 0) -> np.ndarray:
-    """Pack block payloads into the decode kernel's [G, pw, lanes] words."""
+    """Pack block payloads into the decoder's [G, pw, lanes] words."""
     lib = _load()
     nblocks = len(payloads)
     G = -(-nblocks // lanes)
@@ -613,27 +562,3 @@ def fnv1a64(data: bytes) -> int:
     src = np.frombuffer(data, dtype=np.uint8) if data else np.zeros(1, np.uint8)
     return int(lib.sqz_fnv1a64(_u8(src), len(data)))
 
-
-def squeeze_plan_pack(data: bytes, win_bits: int, blk_bits: int,
-                      lanes: int, tw_cap: int, nthreads: int = 0,
-                      warm: bool = False, parse: str = "exact",
-                      depth: int = 32):
-    """Adaptive-Huffman encode per block recording bitstream writes in the
-    TPU packer's [G, tw_cap, lanes] u32 layout (0 = pad). Returns
-    (words, max_writes). ``warm``: sqzt v2 tree seeding + shared
-    dictionary for blocks 1+ (FORMAT.md §3.1). ``parse="fast"``: bounded
-    approximate matcher (sqzt-contract paths only — spec-valid streams,
-    not byte-identical to the exact parse)."""
-    lib = _load()
-    n = len(data)
-    bs = 1 << blk_bits
-    nblocks = max(1, (n + bs - 1) // bs)
-    G = -(-nblocks // lanes)
-    src = np.frombuffer(data, dtype=np.uint8) if data else np.zeros(1, np.uint8)
-    words = np.zeros((G, tw_cap, lanes), dtype=np.uint32)
-    fast_depth = depth if parse == "fast" else 0
-    mx = _check(lib.squeeze_plan_pack(
-        _u8(src), n, win_bits, blk_bits, lanes, tw_cap, nthreads, int(warm),
-        fast_depth,
-        words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))))
-    return words, mx

@@ -1,22 +1,22 @@
-"""TPU compute path: block-parallel codec kernels (JAX/XLA/Pallas).
+"""Device compute path: the block-parallel codec on the accelerator.
 
 Design (see FORMAT.md §3, SURVEY.md §7 and PERF.md): the entropy coders are
 serial *within* a block by construction — every token updates the adaptive
 model the next token is coded with — so device throughput comes from coding
-many independent blocks in lock-step, blocks riding the vector lanes.
+many independent blocks side by side, one block per lane.
 
-Two generations live here:
-
-* ``sqz4_pallas`` — the production kernels. The whole serial coder loop is
-  ONE Mosaic kernel per direction (u64 registers as u32 pairs, incremental
-  cumulative-frequency tables, staged ring I/O); used on real TPU backends.
+* ``coder`` — the device sqz4 coders: one encoder and one decoder in
+  ``native/sqz4_coder.h``, called through ``jax.ffi`` (CUDA on a GPU, the
+  same source built for the host on the CPU).
 * ``sqz4_jax`` / ``squeeze_jax`` / ``huffman_jax`` — the batched XLA scan
-  formulation; bit-identical but ~100 µs/step in loop overhead (PERF.md),
-  kept as the CPU-mesh / shard_map-dryrun path and differential reference.
+  formulation; bit-identical, one while-loop iteration per coder step. The
+  plain XLA reference the device coders are measured against, and the
+  shard_map scan paths of ``parallel/shard.py``.
+* ``resident`` / ``lzparse`` / ``lz_restore`` — device-resident parses and
+  restore assemblies around the coders.
 
 x64 mode is required by the scan paths: the wire formats are defined over
-exact 64-bit range-coder arithmetic (FORMAT.md §2.3). The Pallas kernels
-use u32-pair emulation and pin every dtype explicitly.
+exact 64-bit range-coder arithmetic (FORMAT.md §2.3).
 """
 
 import jax

@@ -1,16 +1,15 @@
 """Chip-resident restore for GENERAL sqz4 streams (VERDICT r4 #4).
 
-The decode kernel defers LZ application: it emits a dense literal stream,
+The device decoder defers LZ application: it emits a dense literal stream,
 one match/literal bit per decoded token, and ordered match records
-(len << 16 | dist). The cell restore (ops/resident.decode_rle_group)
+(len << 24 | dist). The cell restore (ops/resident.decode_rle_group)
 assembles only cell-parsed streams; this module assembles ANY spec-valid
 stream on device — including the general-content device-LZ parse
 (ops/lzparse.py) and foreign encoders' streams — with zero host byte
 assembly:
 
   1. **Match destinations by compaction sort.** The m-th set token bit
-     is match m: one stable sort over the token axis (the [64, n]
-     batch shape the TPU sort compiles well at, PERF.md round 4) yields
+     is match m: one stable sort over the token axis yields
      each match's token index; with records already match-ordered,
      dst[m] = (token_index[m] - m) + exclusive_cumsum(len)[m] — no
      scatter needed.
@@ -22,7 +21,7 @@ assembly:
   3. **Match application by pointer doubling.** Every covered position
      maps to its periodic source src(p) = dst - dist + ((p - dst) mod
      dist) — the overlapped-copy semantics of the reference's
-     byte-serial loop (/root/reference/src/sqz.c:826-831) collapsed to
+     byte-serial loop (reference src/sqz.c:826-831) collapsed to
      one hop that always lands strictly before the match. Composing the
      map with itself (src = src[src], a lax.while_loop) doubles the
      resolved chain depth per round, so chains of ANY depth (RLE runs
@@ -32,7 +31,7 @@ assembly:
 
 Unlike the cell restore there is NO assume-then-verify: every step is
 exact for arbitrary spec-valid streams. Lanes fall back to the host only
-for kernel-flagged errors/overflows or streams that fail the structural
+for decoder-flagged errors/overflows or streams that fail the structural
 validation (dist == 0, dist > dst, output-size mismatch) — i.e. corrupt
 containers, which the host decoder then rejects with the precise errno.
 """
@@ -45,13 +44,13 @@ import jax
 import numpy as np
 from jax import numpy as jnp
 
-from sqz_tpu.ops import sqz4_pallas as sp
+from sqz_tpu.ops import coder
 
 I32 = jnp.int32
 U32 = jnp.uint32
 
-_SLICE = 64          # lanes per assembly program: the TPU sort's
-                     # compile-friendly batch (PERF.md round 4)
+_SLICE = 64          # lanes per assembly program: bounds the [lanes, bs]
+                     # sort and scan intermediates
 
 
 def _cumsum_excl(x, axis):
@@ -63,7 +62,7 @@ def _cumsum_excl(x, axis):
 def _assemble_stage(litw, tokw, mrecw, counts, sizes, T: int, MW: int,
                     bs: int):
     """One lane slice of the general assembly: decoder record streams ->
-    ([B, bs] u8 blocks, [B] bad flags). litw/tokw/mrecw are the kernel's
+    ([B, bs] u8 blocks, [B] bad flags). litw/tokw/mrecw are the decoder's
     [LW|TW|MW, B] column layouts; counts [8, B]; sizes [B] i32."""
     B = tokw.shape[1]
     rows = jnp.arange(B, dtype=I32)[:, None]
@@ -92,8 +91,8 @@ def _assemble_stage(litw, tokw, mrecw, counts, sizes, T: int, MW: int,
     m_i = jnp.arange(MW, dtype=I32)[None, :]
     mvalid = m_i < nmatch[:, None]
     rec = mrecw.transpose(1, 0).astype(I32)[:, :MW]
-    mlen = jnp.where(mvalid, (rec >> 16) & 0xFFFF, 0)
-    mdist = jnp.where(mvalid, rec & 0xFFFF, 0)
+    mlen = jnp.where(mvalid, (rec >> 24) & 0xFF, 0)
+    mdist = jnp.where(mvalid, rec & 0xFFFFFF, 0)
     dst = jnp.where(mvalid, (mpos - m_i) + _cumsum_excl(mlen, 1), 0)
 
     # ---- structural validation (corrupt containers -> host fallback,
@@ -142,7 +141,7 @@ def _assemble_stage(litw, tokw, mrecw, counts, sizes, T: int, MW: int,
 
     dstv, distv = jax.lax.associative_scan(_carry, (da, dd), axis=1)
     distv = jnp.maximum(distv, 1)
-    # run collapse (round 5, hardware-profiled): out[p] == out[p - d] at
+    # run collapse: out[p] == out[p - d] at
     # EVERY position of a dist-d match, so a maximal covered stretch
     # with constant dist telescopes straight past all of its chained
     # matches: src = run_start - d + ((p - run_start) mod d). This is
@@ -181,13 +180,11 @@ def _assemble_stage(litw, tokw, mrecw, counts, sizes, T: int, MW: int,
     return out, bad
 
 
-def decode_lz_group(buf, plens, sizes, Pw: int, t_max: int, lw: int,
-                    tw: int, mw: int, bs: int, interpret: bool,
-                    wide: bool, trim_tokens: bool = None):
-    """Chip-resident decode of ARBITRARY sqz4 payloads: the standard
-    decode kernel, then the exact sort/scan/pointer-doubling assembly in
-    _SLICE-lane stages (each stage holds ONE [64, n] sort — the
-    compile-friendly TPU sort batch). Same signature/contract as
+def decode_lz_group(buf, plens, sizes, Pw: int, lw: int, tw: int,
+                    mw: int, bs: int, trim_tokens: bool = None):
+    """Device-resident decode of ARBITRARY sqz4 payloads: the device
+    decoder, then the exact sort/scan/pointer-doubling assembly in
+    _SLICE-lane stages. Same signature/contract as
     resident.decode_rle_group: ([B, bs] u8 blocks, counts [1,8,B],
     bad [B]).
 
@@ -197,12 +194,8 @@ def decode_lz_group(buf, plens, sizes, Pw: int, t_max: int, lw: int,
     ~bs/4, so the compaction sort — the assembly's cost driver — shrinks
     ~4x; pow2 buckets bound the compiled variants."""
     B = buf.shape[2]
-    z = jnp.zeros((B,), I32)
-    meta = jnp.stack([plens.astype(I32), sizes.astype(I32),
-                      z, z, z, z, z, z])[None]
-    lit, tok, mrec, counts = sp._decode_pallas(
-        buf[:, :Pw, :], meta, t_max, lw, tw, mw, interpret, wide, 1,
-        None, fused=True)
+    lit, tok, mrec, counts = coder.decode(
+        buf[:, :Pw, :], coder.make_meta(plens, sizes), lw, tw, mw)
     if trim_tokens is None:
         trim_tokens = not isinstance(counts, jax.core.Tracer)
     T = tw * 32

@@ -1,26 +1,23 @@
-"""Pipelined sqz4 encode/decode: overlap the host stages (planning /
-payload packing / record assembly), host<->device transfers, and the
-Pallas coder kernels (VERDICT r2 #1 / ROADMAP r2 #3).
+"""Pipelined sqz4 encode: overlap the host token planning, host<->device
+transfers and the device coder (VERDICT r2 #1 / ROADMAP r2 #3). The
+decode side's overlap lives in coder.decode_groups, which overlaps chunk
+c's download + assembly with chunk c+1's decode.
 
-The serial engine runs plan -> upload -> kernel -> download -> unpack per
-call, so the chip idles during the host stages and vice versa. Here the
-input is split into GROUPS of ``lanes`` blocks (the kernel's natural batch)
-and a planner thread keeps planning group k+1 while the device codes group
-k; JAX's async dispatch queues uploads and kernel calls without blocking,
-and per-group downloads drain while later groups still compute. On this
-sandbox's 1-vCPU host the planner thread overlaps with the main thread's
-transfer/fence waits (ctypes releases the GIL around the native planner);
-on a many-core host the planner parallelizes internally as well
-(sqz4_fast_plan is block-threaded).
+The serial engine runs plan -> upload -> code -> download -> unpack per
+call, so the device idles during the host stages and vice versa. Here the
+input is split into GROUPS of ``lanes`` blocks and a planner thread keeps
+planning group k+1 while the device codes group k; JAX's async dispatch
+queues uploads and coder calls without blocking, and per-group downloads
+drain while later groups still compute (ctypes releases the GIL around
+the native planner, which is itself block-threaded).
 
 Streams are identical to the non-pipelined path with the same ``parse``
-mode — grouping only batches kernel dispatches; each block's op stream and
+mode — grouping only batches coder dispatches; each block's parse and
 model state are unchanged (blocks are independent, SURVEY §2.6).
 """
 
 from __future__ import annotations
 
-import os
 import queue
 import threading
 from typing import List
@@ -29,62 +26,32 @@ import numpy as np
 
 
 def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
-                          cap: int, parse: str = "auto",
-                          depth: int = None, lanes: int = None,
-                          interpret: bool = False,
-                          transport: str = "auto",
+                          cap: int, parse: str = "auto", lanes: int = None,
                           stats: dict = None) -> List[bytes]:
-    """Whole-buffer sqz4 encode with host/device overlap. Returns per-block
-    payloads (same contract as sqz4_pallas.encode_data_full, cold path).
-
-    ``transport``: how planned work reaches the chip — 'tok' (token-input
-    kernel: ~1.1 B of transfer per input byte, the default for the fast
-    parse) or 'ops' (expanded micro-op streams, ~4.5 B/B, required for
-    the exact parse). SQZ_TRANSPORT overrides.
+    """Whole-buffer cold sqz4 encode with host/device overlap. Returns
+    per-block payloads (the contract of coder.encode_data).
 
     ``stats``: optional dict; filled with per-stage active wall seconds
-    (VERDICT r3 #4): plan_s (planner thread: native parse + slab
-    assembly), wait_plan_s (main thread starved for plans), dispatch_s
-    (uploads + kernel dispatch, async), fence_s (blocked on device
-    results), fetch_s (payload download + unpack), wall_s. Stages
-    overlap — their sum exceeding wall_s measures the pipelining."""
+    (VERDICT r3 #4): plan_s (planner thread: native parse), wait_plan_s
+    (main thread starved for plans), dispatch_s (uploads + coder dispatch,
+    async), fence_s (blocked on device results), fetch_s (payload
+    download + unpack), wall_s. Stages overlap — their sum exceeding
+    wall_s measures the pipelining."""
     import time
 
-    import jax.numpy as jnp
-    from sqz_tpu import native
-    from sqz_tpu.ops import sqz4_pallas as sp
+    from sqz_tpu.ops import coder
 
     st = stats if stats is not None else {}
     for k in ("plan_s", "wait_plan_s", "dispatch_s", "fence_s", "fetch_s"):
         st[k] = 0.0
     t_wall0 = time.perf_counter()
-
-    if blk_bits > 16:
-        raise ValueError("sqz4 TPU kernels support blk_bits <= 16")
-    parse = sp.parse_mode(parse)
-    env_t = os.environ.get("SQZ_TRANSPORT")
-    if env_t in ("tok", "ops"):
-        transport = env_t
-    elif transport == "auto":
-        transport = "tok" if parse == "fast" else "ops"
-    if transport == "tok" and parse != "fast":
-        raise ValueError("the token transport carries the fast parse only")
-    if depth is None:
-        depth = int(os.environ.get("SQZ_FAST_DEPTH", "32"))
-    tc = sp.ENC_TC
     if lanes is None:
-        lanes = sp.ENC_LANES
-    fused = os.environ.get("SQZ_ENC_FUSED", "1") == "1"
+        lanes = coder.ENC_LANES
     bs = 1 << blk_bits
     NB = max(1, -(-len(data) // bs))
     G = -(-NB // lanes)
     gbytes = bs * lanes                      # input bytes per group
-    tp_cap = -(-(5 * bs // 2 + 64) // (4 * tc)) * 4 * tc
-    tok_cap = min(-(-(2 * bs // 3 + 96) // 32) * 32, 1 << 14)
-    lit_cap = max(bs, 128)
-    cap_words = (-(-(cap + 3) // 4) + 31) // 32 * 32
-    wide = blk_bits >= 15
-    bq = 32 if interpret else 1024
+    cap_words = coder.cap_words_for(cap)
 
     # ---- stage 1 (planner thread): plan one group at a time; a depth-2
     # queue keeps at most one planned-but-undispatched group in memory
@@ -98,52 +65,10 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
                     break
                 t_g0 = time.perf_counter()
                 chunk = data[g * gbytes:(g + 1) * gbytes]
-                nb = max(1, -(-len(chunk) // bs))
-                if transport == "tok":
-                    toks, lits, counts, _mx = native.sqz4_tok_plan(
-                        chunk, window, blk_bits, lz, tok_cap, lit_cap,
-                        depth=depth)
-                    # straggler sort within the group + vectorized slabs
-                    fit = [b for b in range(nb) if counts[b, 2] >= 0]
-                    fit.sort(key=lambda b: int(counts[b, 2]))
-                    over = [b for b in range(nb) if counts[b, 2] < 0]
-                    if not fit:
-                        st["plan_s"] += time.perf_counter() - t_g0
-                        q.put((g, nb, None, over))
-                        continue
-                    Tt = max(96, min(-(-int(counts[fit, 0].max()) // bq)
-                                     * bq, tok_cap))
-                    lw_ = (int(counts[fit, 1].max()) + 3) // 4
-                    Lw = max(96, min(-(-lw_ // bq) * bq, lit_cap // 4))
-                    t_max = (-(-int(counts[fit, 2].max()) // bq) * bq
-                             if not interpret
-                             else int(counts[fit, 2].max()))
-                    tarr = np.zeros((1, lanes, Tt), np.uint32)
-                    larr = np.zeros((1, lanes, Lw * 4), np.uint8)
-                    tarr[0, :len(fit)] = toks[fit, :Tt]
-                    larr[0, :len(fit)] = lits[fit, :Lw * 4]
-                    st["plan_s"] += time.perf_counter() - t_g0
-                    q.put((g, nb, (fit, t_max, tarr, larr), over))
-                elif parse == "fast":
-                    m8, s8, mx = native.sqz4_fast_plan(
-                        chunk, window, blk_bits, lz, tp_cap, paired=fused,
-                        depth=depth)
-                    rows = -(-int(mx) // (4 * tc)) * tc
-                    mp = np.full((lanes, rows * 4), 255, np.uint8)
-                    s8p = np.zeros((lanes, rows * 4), np.uint8)
-                    mp[:nb] = m8[:, :rows * 4]
-                    s8p[:nb] = s8[:, :rows * 4]
-                    st["plan_s"] += time.perf_counter() - t_g0
-                    q.put((g, nb, rows, mp, s8p))
-                else:
-                    mw, sw, mx = native.sqz4_plan_pack(
-                        chunk, window, blk_bits, lz, lanes, tp_cap,
-                        paired=fused)
-                    rows = -(-int(mx) // (4 * tc)) * tc
-                    st["plan_s"] += time.perf_counter() - t_g0
-                    q.put((g, nb, rows,
-                           np.ascontiguousarray(mw[:, :rows]),
-                           np.ascontiguousarray(sw[:, :rows])))
+                toks, lits, counts, _mx, _seed = coder.plan_tokens(
+                    chunk, blk_bits, window, lz, parse)
+                st["plan_s"] += time.perf_counter() - t_g0
+                q.put((toks, lits, counts))
         except BaseException as e:          # surface planner errors
             q.put(e)
             return
@@ -165,33 +90,10 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
             if isinstance(item, BaseException):
                 raise item
             t_d0 = time.perf_counter()
-            if transport == "tok":
-                g, nb, slab, over = item
-                if slab is None:
-                    pending.append((g, nb, None, None, None, over))
-                    continue
-                fit, t_max, tarr, larr = slab
-                tdev = sp._transpose_tok(jnp.asarray(tarr))
-                ldev = sp._pack_ops_words(jnp.asarray(larr))
-                words, lens = sp._encode_tok_pallas(tdev, ldev, t_max,
-                                                    cap_words, interpret,
-                                                    wide)
-                pending.append((g, nb, fit, words, lens, over))
-            else:
-                g, nb, rows, ma, sa = item
-                if parse == "fast":
-                    mw_dev = sp._pack_ops_words(
-                        jnp.asarray(ma.reshape(1, lanes, -1)))
-                    sw_dev = sp._pack_ops_words(
-                        jnp.asarray(sa.reshape(1, lanes, -1)))
-                else:
-                    mw_dev = jnp.asarray(ma)     # already [1, rows, lanes]
-                    sw_dev = jnp.asarray(sa)
-                words, lens = sp._encode_full_pallas(mw_dev, sw_dev,
-                                                     cap_words, tc,
-                                                     interpret, wide,
-                                                     fused)
-                pending.append((g, nb, words, lens))
+            toks, lits, counts = item
+            words, lens = coder.dispatch_tokens(toks, lits, counts,
+                                                cap_words)
+            pending.append((len(counts), words, lens))
             st["dispatch_s"] += time.perf_counter() - t_d0
     except BaseException:
         # cancel + unblock the planner (bounded queue) so the thread exits
@@ -205,194 +107,16 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
         raise
 
     payloads: List[bytes] = []
-    for item in pending:
-        if transport == "tok":
-            g, nb, fit, words, lens, over = item
-            grp_out = [None] * nb
-            if fit is not None:
-                t_f0 = time.perf_counter()
-                lens_np = np.asarray(lens)   # fence: device results
-                st["fence_s"] += time.perf_counter() - t_f0
-                if int(lens_np[:, 0].max(initial=0)) > cap_words * 4:
-                    raise ValueError(
-                        "compressed block exceeded the output capacity")
-                t_f0 = time.perf_counter()
-                grp = _fetch_group(words, lens_np, len(fit), interpret)
-                st["fetch_s"] += time.perf_counter() - t_f0
-                for i, b in enumerate(fit):
-                    grp_out[b] = grp[i]
-            for b in over:                   # cap overflow: op-stream path
-                blk = data[(g * lanes + b) * bs:(g * lanes + b + 1) * bs]
-                grp_out[b] = sp.encode_data_full(
-                    blk, blk_bits, window, lz, cap, tc, lanes,
-                    interpret=interpret, parse="fast")[0]
-            payloads.extend(grp_out)
-        else:
-            g, nb, words, lens = item
-            t_f0 = time.perf_counter()
-            lens_np = np.asarray(lens)       # fence: device results
-            st["fence_s"] += time.perf_counter() - t_f0
-            if int(lens_np[:, 0].max(initial=0)) > cap_words * 4:
-                raise ValueError(
-                    "compressed block exceeded the output capacity")
-            t_f0 = time.perf_counter()
-            payloads.extend(_fetch_group(words, lens_np, nb, interpret))
-            st["fetch_s"] += time.perf_counter() - t_f0
+    for nb, words, lens in pending:
+        t_f0 = time.perf_counter()
+        lens_np = np.asarray(lens)           # fence: device results
+        st["fence_s"] += time.perf_counter() - t_f0
+        coder.check_lens(lens_np, cap_words, nb)
+        t_f0 = time.perf_counter()
+        payloads.extend(coder.unpack_group_payloads(
+            coder.fetch_words_trimmed(words, lens_np), lens_np, nb))
+        st["fetch_s"] += time.perf_counter() - t_f0
     t.join()
     st["wall_s"] = time.perf_counter() - t_wall0
     return payloads
 
-
-def decode_data_pipelined(payloads, sizes, blk_bits: int, seed=None,
-                          dictionary: bytes = b"",
-                          interpret: bool = False,
-                          lanes: int = 0, slots: int = 0,
-                          stats: dict = None) -> List[bytes]:
-    """Whole-container device decode. DEFAULT: delegate to
-    sqz4_pallas.decode_groups — measured FASTER than the threaded packer
-    on this host (PERF.md round 4: 10.5 vs 8.4 MB/s at 128 MiB).
-    decode_groups already overlaps everything that matters here: one
-    native pack pass, async chunk dispatches, and per-chunk trimmed
-    downloads + assembly draining while later chunks compute. The
-    threaded variant's only additional overlap is the pack stage
-    (~0.7 s/128 MiB) against real thread contention on the host stages;
-    SQZ_DEC_PIPE=thread selects it for many-core hosts.
-
-    Outputs are identical either way — chunking only batches dispatches;
-    blocks are independent (SURVEY §2.6).
-
-    ``seed``/``dictionary``: warm-start state ALL blocks in this call
-    were coded with (FORMAT.md §3.1/§3.2 — callers batch per anchor)."""
-    import jax.numpy as jnp
-    from sqz_tpu import native
-    from sqz_tpu.ops import sqz4_pallas as sp
-
-    if blk_bits > 16:
-        raise ValueError("sqz4 TPU kernels support blk_bits <= 16")
-    NB = len(payloads)
-    threaded = os.environ.get("SQZ_DEC_PIPE", "serial") == "thread"
-    if not threaded or not native.available() or NB == 0:
-        return sp.decode_groups(payloads, sizes, blk_bits, interpret,
-                                lanes=lanes, slots=slots,
-                                seed=seed, dictionary=dictionary,
-                                stats=stats)
-    bs = 1 << blk_bits
-    warm = seed is not None
-    plan = sp.plan_decode_dispatch(NB, blk_bits, lanes, slots,
-                                   interpret=interpret)
-    lanes, slots, Pw = plan["lanes"], plan["slots"], plan["Pw"]
-    lw, tw, mw, t_max = plan["lw"], plan["tw"], plan["mw"], plan["t_max"]
-    wide = warm or blk_bits >= 15
-    fused = os.environ.get("SQZ_DEC_FUSED", "1") == "1"
-
-    # warm-expanded payloads past the kernel's stream buffer decode on the
-    # host (same rule as decode_groups — rare and pathological)
-    host_out = {}
-    keep = list(range(NB))
-    if any(len(p) > 4 * Pw for p in payloads):
-        keep = [b for b in range(NB) if len(payloads[b]) <= 4 * Pw]
-        for b in range(NB):
-            if len(payloads[b]) > 4 * Pw:
-                host_out[b] = native.sqz4_decompress_payload(
-                    payloads[b], sizes[b], seed=seed, dictionary=dictionary)
-
-    # straggler grouping: sort by compressed size so each chunk's
-    # while_loop runs to its own worst block, not the global one
-    order = sorted(keep, key=lambda b: len(payloads[b]))
-    if not order:                            # every payload host-decoded
-        outs = [None] * NB
-        for b, v in host_out.items():
-            outs[b] = v
-        return outs
-    sp_pl = [payloads[b] for b in order]
-    sp_sz = [sizes[b] for b in order]
-    per = lanes * slots                      # blocks per dispatch
-    nchunks = -(-len(order) // per)
-
-    q: queue.Queue = queue.Queue(maxsize=2)
-    stop = threading.Event()                 # set on main-loop failure
-
-    def packer():
-        try:
-            for c in range(nchunks):
-                if stop.is_set():
-                    break
-                chunk = sp_pl[c * per:(c + 1) * per]
-                buf, meta = sp.pack_decode_chunk(
-                    chunk, sp_sz[c * per:(c + 1) * per], lanes, slots, Pw,
-                    len(dictionary))
-                q.put((c, len(chunk), buf, meta))
-        except BaseException as e:
-            q.put(e)
-            return
-        q.put(None)
-
-    t = threading.Thread(target=packer, daemon=True)
-    t.start()
-
-    seed_dev = (jnp.asarray(sp._dec_seed_table(seed, slots, lanes))
-                if warm else None)
-    pending = []
-    outs_sorted: List[bytes] = []
-
-    def _drain_one():
-        # trimmed device-transposed download + host assembly of the
-        # OLDEST dispatched chunk — runs while later chunks still
-        # compute (async dispatch) and the packer packs the next one
-        c, nbc, res = pending.pop(0)
-        lt, tt, mt, cnt = sp.fetch_decode_host(res)
-        outs_sorted.extend(sp.postprocess_decode(
-            lt, tt, mt, cnt, sp_pl[c * per:c * per + nbc],
-            sp_sz[c * per:c * per + nbc], bs, seed=seed,
-            dictionary=dictionary, transposed=True,
-            block_ids=order[c * per:c * per + nbc]))
-
-    try:
-        while True:
-            item = q.get()
-            if item is None:
-                break
-            if isinstance(item, BaseException):
-                raise item
-            c, nbc, buf, meta = item
-            res = sp._decode_pallas(jnp.asarray(buf), jnp.asarray(meta),
-                                    t_max, lw, tw, mw, interpret, wide,
-                                    slots, seed_dev, fused)
-            pending.append((c, nbc, res))
-            if len(pending) >= 2:    # keep one chunk in flight on-device
-                _drain_one()
-    except BaseException:
-        # cancel + unblock the packer (bounded queue) so the thread exits
-        # after at most its current chunk instead of packing the rest
-        stop.set()
-        while t.is_alive():
-            try:
-                q.get(timeout=0.05)
-            except queue.Empty:
-                pass
-        raise
-
-    while pending:
-        _drain_one()
-    t.join()
-    outs = [None] * NB
-    for pos, b in enumerate(order):
-        outs[b] = outs_sorted[pos]
-    for b, v in host_out.items():
-        outs[b] = v
-    return outs
-
-
-def _fetch_group(words, lens_np, nb: int, interpret: bool):
-    """Download one group's payloads. SQZ_FETCH=compact uses the ragged
-    DMA compaction (tight ~ratio x input download, PERF.md round 3);
-    trim ships the rectangle cut at the longest lane. Interpret mode
-    (CPU tests) always takes the compact path — it is the shipped device
-    path and must stay covered."""
-    from sqz_tpu.ops import sqz4_pallas as sp
-    mode = os.environ.get("SQZ_FETCH", "compact" if interpret else "trim")
-    if mode == "compact":
-        return sp.fetch_payloads_compact(words, lens_np, nb,
-                                         interpret=interpret)
-    return sp.unpack_group_payloads(sp.fetch_words_trimmed(words, lens_np),
-                                    lens_np, nb)

@@ -2,18 +2,18 @@
 
 The reference HEAD encoder emits literals only (src/sqz.c:591 zeroes the
 match map at function entry), so its exact stream semantics need no match
-finder. That makes the literal-only mode fully TPU-resident: the token
+finder. That makes the literal-only mode fully device-resident: the token
 stream (one run token per <=255 literals + EOS, the layout of
 native sqz4_tok_plan's lz=0 branch) and the packed literal stream are
-computed from the raw bytes by fused XLA ops, and the token-input Mosaic
-kernel (sqz4_pallas._encode_tok_kernel) does the coding. No per-byte host
-work, no host->device op traffic — the input is already in HBM (the
+computed from the raw bytes by fused XLA ops, and the device encoder
+(ops/coder.py) does the coding. No per-byte host work, no host->device
+token traffic — the input is already in device memory (the
 checkpoint-shard / activation-buffer use case) and only compressed bytes
 ever need to cross the link.
 
-Decode mirrors it: the encode output word layout IS the decode kernel's
+Decode mirrors it: the encoder's output word layout IS the decoder's
 payload input layout, and for literal-only streams the decoder's dense
-literal stream IS the output, so a round trip never leaves the chip.
+literal stream IS the output, so a round trip never leaves the device.
 
 Streams are bit-identical to the host/oracle coders' lz=False payloads
 (asserted in tests/test_resident.py against sqz4_compress_payload).
@@ -27,7 +27,7 @@ import jax
 import numpy as np
 from jax import numpy as jnp
 
-from sqz_tpu.ops import sqz4_pallas as sp
+from sqz_tpu.ops import coder
 
 I32 = jnp.int32
 U32 = jnp.uint32
@@ -35,17 +35,16 @@ U32 = jnp.uint32
 EOS_TOKEN = np.uint32(0x1FF)         # 0xFF | (1 << 8): match flag + len 255
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+_round_up = coder.round_up
 
 
 def _token_dim(bs: int) -> int:
-    # run tokens + EOS + one fetch-past-the-end slot, window-aligned
-    return max(96, _round_up(-(-bs // 255) + 2, 32))
+    # run tokens + EOS
+    return -(-bs // 255) + 1
 
 
 def _lit_word_dim(bs: int) -> int:
-    return max(96, _round_up(-(-bs // 4), 32))
+    return -(-bs // 4)
 
 
 def _tokens_from_lengths(lengths, Tt: int):
@@ -63,7 +62,7 @@ def _tokens_from_lengths(lengths, Tt: int):
 
 def _pack_literal_words(blocks, Lw: int):
     """[B, bs] u8 blocks -> [1, Lw, B] u32 (4 big-endian bytes per word,
-    zero-padded to Lw rows) — the token kernel's literal stream layout."""
+    zero-padded to Lw rows) — the encoder's literal stream layout."""
     B, bs = blocks.shape
     x = blocks.astype(U32).reshape(B, bs // 4, 4)
     w = (x[..., 0] << 24) | (x[..., 1] << 16) | (x[..., 2] << 8) | x[..., 3]
@@ -73,23 +72,19 @@ def _pack_literal_words(blocks, Lw: int):
     return w[None]
 
 
-@partial(jax.jit,
-         static_argnames=("Tt", "Lw", "t_max", "cap_words", "interpret",
-                          "wide"))
-def encode_literal_group(blocks, lengths, Tt: int, Lw: int, t_max: int,
-                         cap_words: int, interpret: bool, wide: bool):
+@partial(jax.jit, static_argnames=("Tt", "Lw", "cap_words"))
+def encode_literal_group(blocks, lengths, Tt: int, Lw: int, cap_words: int):
     """One lane group, fully on-device: raw [B, bs] u8 blocks (+ per-lane
     valid lengths) -> (payload words [1, cap_words, B] u32, lens
-    [1, 8, B] i32). B must be a multiple of 128."""
+    [1, 1, B] i32)."""
     toks = _tokens_from_lengths(lengths, Tt)
     lits = _pack_literal_words(blocks, Lw)
-    return sp._encode_tok_pallas(toks, lits, t_max, cap_words, interpret,
-                                 wide)
+    return coder.encode(toks, lits, cap_words)
 
 
 def _words_to_bytes(w):
     """[..., W] u32/i32 words -> [..., W*4] bytes (big-endian within each
-    word — the kernel stream layout). Single definition for every
+    word — the coders' stream layout). Single definition for every
     unpack in this module."""
     w = w.astype(I32)
     by = jnp.stack([(w >> 24) & 0xFF, (w >> 16) & 0xFF,
@@ -108,36 +103,26 @@ def _unpack_literal_bytes(lit_words, sizes, bs: int):
     return jnp.where(pos < sizes[:, None], by, jnp.asarray(0, jnp.uint8))
 
 
-@partial(jax.jit,
-         static_argnames=("Pw", "t_max", "lw", "tw", "mw", "bs",
-                          "interpret", "wide"))
-def decode_literal_group(words, lens, sizes, Pw: int, t_max: int, lw: int,
-                         tw: int, mw: int, bs: int, interpret: bool,
-                         wide: bool):
+@partial(jax.jit, static_argnames=("Pw", "lw", "tw", "mw", "bs"))
+def decode_literal_group(words, lens, sizes, Pw: int, lw: int, tw: int,
+                         mw: int, bs: int):
     """Mirror of encode_literal_group, fully on-device: encoder output
     (words, lens) + expected sizes -> ([B, bs] u8 blocks, counts
     [1, 8, B] i32). counts rows: 0 produced bytes, 4 error code, 6
-    overflow flag — callers wanting validation download this 16 KiB row
+    overflow flag — callers wanting validation download this small row
     block, not the data."""
-    B = words.shape[2]
-    buf = words[:, :Pw, :]
-    z = jnp.zeros((B,), I32)
-    meta = jnp.stack([lens[0, 0, :].astype(I32),
-                      sizes.astype(I32), z, z, z, z, z, z])[None]
-    lit, _tok, _mrec, counts = sp._decode_pallas(
-        buf, meta, t_max, lw, tw, mw, interpret, wide, 1, None,
-        fused=True)
+    meta = coder.make_meta(lens[0, 0, :], sizes)
+    lit, _tok, _mrec, counts = coder.decode(words[:, :Pw, :], meta, lw, tw,
+                                            mw)
     return _unpack_literal_bytes(lit, sizes, bs), counts
 
 
 def encode_literal_blocks(data: bytes, blk_bits: int,
-                          lanes: int = sp.ENC_LANES, cap: int = None,
-                          interpret: bool = False):
+                          lanes: int = coder.ENC_LANES, cap: int = None):
     """Host-facing convenience wrapper: bytes -> per-block payloads via
     the device-resident path (the only host work is the one raw upload
     and the trimmed payload download)."""
-    return encode_resident_blocks(data, blk_bits, "lit", lanes, cap,
-                                  interpret)
+    return encode_resident_blocks(data, blk_bits, "lit", lanes, cap)
 
 
 CELL = 128
@@ -156,14 +141,14 @@ def _rle_tokens_from_blocks(blocks, lengths, Tt: int):
     """Cell-granular periodic parse, entirely on-device: a 128-byte cell
     that continues a period-d repeat (bytes[i] == bytes[i-d] for the
     whole cell, d in RLE_DISTS — the overlapped-copy semantics of
-    src/sqz.c:826-831) becomes one len-128/dist-d match token (8 kernel
-    pairs instead of 128; d=1 is plain RLE, d=4 the reference's classic
+    src/sqz.c:826-831) becomes one len-128/dist-d match token (a few coder
+    steps instead of 256; d=1 is plain RLE, d=4 the reference's classic
     4-byte-pattern synthetic case); an all-zero cell with no periodic
     predecessor copies the nearest previous all-zero cell instead
     (dist = k*CELL, k <= 255 — the isolated-zero-cell case sparse
     checkpoints hit); other full cells are 128-literal run tokens, the
-    partial tail is a literal run, EOS closes. Returns ([1, Tt, B] u32
-    tokens, [B] i32 fused-pair counts)."""
+    partial tail is a literal run, EOS closes. Returns [1, Tt, B] u32
+    tokens."""
     B, bs = blocks.shape
     C = bs // CELL
     c = jnp.arange(C, dtype=I32)[None, :]
@@ -171,9 +156,8 @@ def _rle_tokens_from_blocks(blocks, lengths, Tt: int):
     cell_tok = jnp.full((B, C), CELL, U32)              # literal default
     matched = jnp.zeros((B, C), bool)
     # cell [s, s+128) continues period d iff bytes[i] == bytes[i-d]
-    # across it; split cell-aligned (no gathers — TPU gathers are
-    # element-serial): (a) intra-cell periodicity, (b) the first d bytes
-    # stitch to the previous cell's last d bytes
+    # across it; split cell-aligned: (a) intra-cell periodicity, (b) the
+    # first d bytes stitch to the previous cell's last d bytes
     for d in reversed(RLE_DISTS):                       # small d wins
         if d < CELL:
             intra = jnp.all(cells[:, :, d:] == cells[:, :, :-d], axis=2)
@@ -220,14 +204,14 @@ def _rle_tokens_from_blocks(blocks, lengths, Tt: int):
     # occurrence of each content guarantees it — a source that were
     # itself a far copy would need an earlier identical eligible cell,
     # contradicting earliest. Candidates come from a keyed u32
-    # fingerprint; emission is gated on an exact byte compare (one-hot
-    # MXU gather), so a fingerprint collision only costs a missed match.
+    # fingerprint; emission is gated on an exact byte compare of the
+    # gathered source cell, so a fingerprint collision only costs a
+    # missed match.
     eligible = fullsrc & ~matched
     kw = ((np.arange(CELL, dtype=np.uint64) * 0x9E3779B1 + 1)
           & 0xFFFFFFFF).astype(np.uint32)
     fp = jnp.sum(cells.astype(U32) * jnp.asarray(kw)[None, None, :],
                  axis=2)                                    # [B, C] u32
-    cf = cells.astype(jnp.float32)
     c_s = jnp.arange(C, dtype=I32)
     BIGC = C + 1
     CH = min(64, C)
@@ -240,10 +224,9 @@ def _rle_tokens_from_blocks(blocks, lengths, Tt: int):
               & (c_s[None, None, :] < out_i[None, :, None]))
         cand = jnp.where(ok, c_s[None, None, :], BIGC)
         src_c = jnp.min(cand, axis=2)                       # [B, n]
-        sel = (src_c[:, :, None] == c_s[None, None, :]).astype(jnp.float32)
-        got = jnp.einsum("bks,bsw->bkw", sel, cf,
-                         preferred_element_type=jnp.float32)
-        ver_chunks.append(jnp.all(got == cf[:, c0:c0 + n, :], axis=2))
+        got = jnp.take_along_axis(
+            cells, jnp.minimum(src_c, C - 1)[:, :, None], axis=1)
+        ver_chunks.append(jnp.all(got == cells[:, c0:c0 + n, :], axis=2))
         src_chunks.append(src_c)
     dsrc = jnp.concatenate(src_chunks, axis=1)              # [B, C]
     dver = jnp.concatenate(ver_chunks, axis=1)
@@ -270,64 +253,52 @@ def _rle_tokens_from_blocks(blocks, lengths, Tt: int):
     tok = jnp.where((t == nfull[None, :]) & (rem[None, :] > 0),
                     rem[None, :].astype(U32), tok)
     tok = jnp.where(t == eslot[None, :], jnp.asarray(EOS_TOKEN, U32), tok)
-    # pair count per cell: literal = 128; match = max(drain, coding)
-    # where drain = 128/32 = 4 pairs and coding = 2 + extra dist-bit
-    # pairs for nbits > 2 (5 pairs at d = 64/128)
-    nb_c = (cell_tok >> 9).astype(I32) & 0x1F
-    coding = 2 + jnp.where(nb_c > 2, (nb_c - 1) // 2, 0)
-    cell_pairs = jnp.where(isrun, jnp.maximum(4, coding),
-                           jnp.asarray(CELL, I32))
-    pairs = jnp.sum(jnp.where(c < nfull[:, None], cell_pairs, 0),
-                    axis=1) + rem + 5
-    return tok[None], pairs
+    return tok[None]
 
 
 @partial(jax.jit, static_argnames=("Tt",))
 def rle_plan_device(blocks, lengths, Tt: int):
-    """Device parse pass: (tokens, literal words, per-lane pair counts).
-    The only host involvement in the RLE path is reading max(pairs) (one
-    i32) to pick the kernel's static step bound."""
-    toks, pairs = _rle_tokens_from_blocks(blocks, lengths, Tt)
-    lits = _pack_literal_words(blocks, max(96, blocks.shape[1] // 4))
-    return toks, lits, pairs
+    """Device parse pass: (tokens, raw literal words)."""
+    toks = _rle_tokens_from_blocks(blocks, lengths, Tt)
+    lits = _pack_literal_words(blocks, _lit_word_dim(blocks.shape[1]))
+    return toks, lits
 
 
-def rle_group_args(blk_bits: int, cap: int = None,
-                   interpret: bool = False) -> dict:
+def rle_group_args(blk_bits: int, cap: int = None) -> dict:
     """Static kwargs for the RLE-mode encode group (token dim covers one
     slot per cell + tail + EOS)."""
     bs = 1 << blk_bits
     if cap is None:
         cap = bs + 2048
-    return dict(Tt=max(96, _round_up(bs // CELL + 2, 32)),
-                cap_words=_round_up(-(-(cap + 3) // 4), 32),
-                interpret=interpret, wide=blk_bits >= 15)
+    return dict(Tt=bs // CELL + 2, cap_words=coder.cap_words_for(cap))
 
 
-def encode_rle_group(blocks, lengths, Tt: int, cap_words: int,
-                     interpret: bool, wide: bool, t_max: int = None):
+def encode_rle_group(blocks, lengths, Tt: int, cap_words: int):
     """One lane group through the RLE-resident path: device parse +
-    lit_skip token kernel over the RAW literal stream (no compaction
-    anywhere). Returns (words, lens) device arrays. Decode of these
-    streams goes through the standard decode path (they are ordinary
-    sqz4 payloads); only encode is chip-resident."""
-    toks, lits, pairs = rle_plan_device(blocks, lengths, Tt)
-    if t_max is None:
-        bq = 32 if interpret else 1024
-        t_max = max(bq, _round_up(int(np.asarray(jnp.max(pairs))), bq))
-    return sp._encode_tok_pallas(toks, lits, t_max, cap_words, interpret,
-                                 wide, lit_skip=True)
+    lit_skip encoder over the RAW literal stream (no compaction
+    anywhere). Returns (words, lens) device arrays; the payloads are
+    ordinary sqz4 streams."""
+    toks, lits = rle_plan_device(blocks, lengths, Tt)
+    return coder.encode(toks, lits, cap_words, lit_skip=True)
 
 
-def _prep_blocks(data, blk_bits: int, lanes: int):
+def _prep_blocks(data, blk_bits: int, lanes: int, multiple: int = None):
     """bytes OR a 1-D u8 array (host or device-resident) -> ([rows, bs]
     device u8 blocks, [rows] np.int32 valid lengths, NB, total bytes).
-    Device arrays are padded/reshaped on-device — no download."""
+    rows is NB rounded up to ``multiple`` when given; otherwise NB, or NB
+    rounded up to whole groups of ``lanes`` when there is more than one
+    group. Device arrays are padded/reshaped on-device — no download."""
     bs = 1 << blk_bits
+
+    def _rows(NB):
+        if multiple:
+            return _round_up(NB, multiple)
+        return NB if NB <= lanes else _round_up(NB, lanes)
+
     if isinstance(data, (bytes, bytearray, memoryview)):
         n = len(data)
         NB = max(1, -(-n // bs))
-        rows = max(lanes, _round_up(NB, lanes))
+        rows = _rows(NB)
         arr = np.zeros((rows, bs), np.uint8)
         arr.reshape(-1)[:n] = np.frombuffer(data, np.uint8)
         blocks = jnp.asarray(arr)
@@ -335,25 +306,31 @@ def _prep_blocks(data, blk_bits: int, lanes: int):
         flat = jnp.asarray(data, dtype=jnp.uint8).reshape(-1)
         n = int(flat.shape[0])
         NB = max(1, -(-n // bs))
-        rows = max(lanes, _round_up(NB, lanes))
+        rows = _rows(NB)
         blocks = jnp.pad(flat, (0, rows * bs - n)).reshape(rows, bs)
     lengths = np.zeros((rows,), np.int32)
     lengths[:NB] = np.clip(n - np.arange(NB, dtype=np.int64) * bs, 0, bs)
     return blocks, lengths, NB, n
 
 
+MAX_BLK_BITS = 20        # 1 MiB blocks: the largest the resident paths size
+
+
+def check_blk_bits(blk_bits: int):
+    if not 1 <= blk_bits <= MAX_BLK_BITS:
+        raise ValueError(f"resident paths support blk_bits "
+                         f"1..{MAX_BLK_BITS}, got {blk_bits}")
+
+
 def encode_resident_blocks(data, blk_bits: int, mode: str = "rle",
-                           lanes: int = sp.ENC_LANES, cap: int = None,
-                           interpret: bool = False):
+                           lanes: int = coder.ENC_LANES, cap: int = None):
     """Resident-path encode of bytes or a (device) u8 array to per-block
     sqz4 payloads. ``mode``: 'lit' = literal-only (reference HEAD
     semantics, fully plan-free); 'rle' = the device periodic cell parse
     on top of it; 'lz' = the bounded general-content device matcher
     (ops/lzparse.py — sort-based exact-gram candidates + chained
-    extension). The only downloads are the payload bytes (and one i32
-    step bound in 'rle'/'lz' modes)."""
-    if blk_bits > 16:
-        raise ValueError("sqz4 TPU kernels support blk_bits <= 16")
+    extension). The only downloads are the payload bytes."""
+    check_blk_bits(blk_bits)
     if mode not in ("lit", "rle", "lz"):
         raise ValueError(f"unknown resident mode {mode!r}")
     if mode == "rle" and (1 << blk_bits) < CELL:
@@ -361,22 +338,13 @@ def encode_resident_blocks(data, blk_bits: int, mode: str = "rle",
     from sqz_tpu.ops import lzparse
     if mode == "lz" and (1 << blk_bits) < lzparse.SEG:
         mode = "lit"    # blocks smaller than one parse segment
-    if mode == "lz":
-        # cap lane groups at the kernel's full vector width (512, like
-        # ENC_LANES): measured on the v5e at blk_bits=16 (tools/check_lz
-        # round 5, 512x64KiB compiles and runs; a group that ever
-        # exceeded the VMEM budget fails loudly at compile, never
-        # silently). The sort stages inside lz_plan_device slice to
-        # SQZ_LZ_SORT_ROWS (64) rows regardless — batch sizes far from
-        # 64 rows make the XLA TPU sort's remote compile pathological.
-        lanes = min(lanes, 512)
     blocks, lengths, NB, _n = _prep_blocks(data, blk_bits, lanes)
     if mode == "rle":
-        gargs = rle_group_args(blk_bits, cap, interpret)
+        gargs = rle_group_args(blk_bits, cap)
     elif mode == "lz":
-        gargs = lzparse.lz_group_args(blk_bits, cap, interpret)
+        gargs = lzparse.lz_group_args(blk_bits, cap)
     else:
-        gargs = encode_group_args(blk_bits, cap, interpret)
+        gargs = encode_group_args(blk_bits, cap)
     payloads: list = []
     for g0 in range(0, blocks.shape[0], lanes):
         grp = blocks[g0:g0 + lanes]
@@ -391,32 +359,30 @@ def encode_resident_blocks(data, blk_bits: int, mode: str = "rle",
                                                **gargs)
         lens_np = np.asarray(lens)
         nb_g = min(lanes, NB - g0)
-        if int(lens_np[:, 0, :nb_g].max(initial=0)) > \
-                gargs["cap_words"] * 4:
-            raise ValueError("compressed block exceeded the output capacity")
-        payloads += sp.unpack_group_payloads(
-            sp.fetch_words_trimmed(words, lens_np), lens_np, nb_g)
+        coder.check_lens(lens_np, gargs["cap_words"], nb_g)
+        payloads += coder.unpack_group_payloads(
+            coder.fetch_words_trimmed(words, lens_np[:, :, :nb_g]),
+            lens_np, nb_g)
     return payloads
 
 
-def encode_rle_blocks(data: bytes, blk_bits: int, lanes: int = sp.ENC_LANES,
-                      cap: int = None, interpret: bool = False):
+def encode_rle_blocks(data: bytes, blk_bits: int,
+                      lanes: int = coder.ENC_LANES, cap: int = None):
     """Host-facing wrapper for the RLE-resident path: bytes -> per-block
     sqz4 payloads (bit-exact with a host coder given the same cell
     parse — asserted against the scan engine in tests)."""
-    return encode_resident_blocks(data, blk_bits, "rle", lanes, cap,
-                                  interpret)
+    return encode_resident_blocks(data, blk_bits, "rle", lanes, cap)
 
 
 # ------------------------------------- resident RLE decode (restore path)
 
 def _row_u32_at(words, idx):
-    """words [R, B], idx [B] i32 -> per-lane words[idx[b], b] as i32
-    (one-hot compare-reduce; TPU gathers are element-serial)."""
-    R, B = words.shape
-    rows = jax.lax.broadcasted_iota(I32, (R, B), 0)
-    return jnp.sum(jnp.where(rows == idx[None, :], words.astype(I32),
-                             jnp.asarray(0, I32)), axis=0)
+    """words [R, B], idx [B] i32 -> per-lane words[idx[b], b] as i32 (0
+    past the last row)."""
+    R = words.shape[0]
+    got = jnp.take_along_axis(words.astype(I32),
+                              jnp.clip(idx, 0, R - 1)[None, :], axis=0)[0]
+    return jnp.where(idx < R, got, 0)
 
 
 def _classify_cells(tokw, mrecw, sizes, C: int):
@@ -428,7 +394,7 @@ def _classify_cells(tokw, mrecw, sizes, C: int):
     Returns (ismatch [C,B], dist [C,B], bad [B], tcur [B]).
 
     tokw: [TW, B] u32 token-bit words (LSB-first, one bit per decoded
-    token); mrecw: [MW, B] match records (len<<16|dist) in match order.
+    token); mrecw: [MW, B] match records (len<<24|dist) in match order.
     """
     B = tokw.shape[1]
 
@@ -440,8 +406,8 @@ def _classify_cells(tokw, mrecw, sizes, C: int):
         bit = (word >> (tcur & 31)) & 1
         ismatch = active & (bit == 1)
         rec = _row_u32_at(mrecw, mcur)
-        dist = rec & 0xFFFF
-        mlen = (rec >> 16) & 0xFFFF
+        dist = rec & 0xFFFFFF
+        mlen = (rec >> 24) & 0xFF
         okd = (dist > 0) & (dist <= CELL) & ((dist & (dist - 1)) == 0)
         okfar = ((dist > CELL) & (dist % CELL == 0)
                  & (dist <= c * CELL))
@@ -460,39 +426,32 @@ def _classify_cells(tokw, mrecw, sizes, C: int):
     return ism, dist, bad, tcur
 
 
-def _gather_cells(src, values, mask=None, CH: int = 64):
-    """Chunked one-hot gather along the cell axis (TPU gathers are
-    element-serial, so the per-(cell, lane) row read becomes an MXU
-    einsum — exact for byte/flag values in f32). Returns
-    values[src[c, b], :, b] for each (c, b) as [C, W, B] f32; ``mask``
-    (optional [C, B] bool) zeroes unselected output cells. The select
-    tensor is built CH output cells at a time to bound its size."""
-    C = src.shape[0]
-    s_i = jnp.arange(C, dtype=I32)
-    chunks = []
-    for c0 in range(0, C, CH):
-        sel = (src[c0:c0 + CH][:, None, :] == s_i[None, :, None])
-        if mask is not None:
-            sel = sel & mask[c0:c0 + CH][:, None, :]
-        chunks.append(jnp.einsum("ksb,swb->kwb", sel.astype(jnp.float32),
-                                 values,
-                                 preferred_element_type=jnp.float32))
-    return jnp.concatenate(chunks, axis=0)
+def _gather_cells(src, values, mask=None):
+    """Gather along the cell axis: values[src[c, b], :, b] for each
+    (c, b) as [C, W, B]; ``mask`` (optional [C, B] bool) zeroes
+    unselected output cells."""
+    C = values.shape[0]
+    idx = jnp.broadcast_to(jnp.clip(src, 0, C - 1)[:, None, :],
+                           (src.shape[0],) + values.shape[1:])
+    got = jnp.take_along_axis(values, idx, axis=0)
+    if mask is not None:
+        got = jnp.where(mask[:, None, :], got, jnp.zeros_like(got))
+    return got
 
 
 def _preplace_literal_cells(litw, islit, C: int):
     """Pass 2: place the decoder's dense literal stream at its output
     cells. Literal cells appear in stream order, so output cell c reads
-    source literal cell cumsum_excl(islit)[c] — a _gather_cells one-hot
-    einsum. Returns [C, B, CELL] u8 (match cells garbage)."""
+    source literal cell cumsum_excl(islit)[c] — a _gather_cells gather.
+    Returns [C, B, CELL] u8 (match cells zero)."""
     LW, B = litw.shape
     by = _words_to_bytes(litw[:C * 32].reshape(C, 32, B)
                          .transpose(0, 2, 1))                # [C, B, 128]
-    lit_cells = by.transpose(0, 2, 1).astype(jnp.float32)    # [C, CELL, B]
+    lit_cells = by.transpose(0, 2, 1).astype(jnp.uint8)      # [C, CELL, B]
     isl = islit.astype(I32)
     src = jnp.cumsum(isl, axis=0) - isl                       # [C, B]
     pre = _gather_cells(src, lit_cells, mask=islit)           # [C, CELL, B]
-    return pre.transpose(0, 2, 1).astype(jnp.uint8)           # [C, B, CELL]
+    return pre.transpose(0, 2, 1)                             # [C, B, CELL]
 
 
 def _fill_cells(pre, ismatch, dist, farfill):
@@ -521,23 +480,16 @@ def _fill_cells(pre, ismatch, dist, farfill):
     return out                                                # [C, B, CELL]
 
 
-@partial(jax.jit,
-         static_argnames=("Pw", "t_max", "lw", "tw", "mw", "bs",
-                          "interpret", "wide"))
-def decode_rle_group(buf, plens, sizes, Pw: int, t_max: int, lw: int,
-                     tw: int, mw: int, bs: int, interpret: bool,
-                     wide: bool):
-    """Chip-resident decode of CELL-parsed sqz4 payloads: the standard
-    decode kernel, then the three-pass device assembly. Returns
-    ([B, bs] u8 blocks, counts [1,8,B], bad [B] — lanes whose stream is
-    not cell-parsed (host fallback) or errored)."""
+@partial(jax.jit, static_argnames=("Pw", "lw", "tw", "mw", "bs"))
+def decode_rle_group(buf, plens, sizes, Pw: int, lw: int, tw: int, mw: int,
+                     bs: int):
+    """Device-resident decode of CELL-parsed sqz4 payloads: the device
+    decoder, then the three-pass device assembly. Returns ([B, bs] u8
+    blocks, counts [1,8,B], bad [B] — lanes whose stream is not
+    cell-parsed (host fallback) or errored)."""
     B = buf.shape[2]
-    z = jnp.zeros((B,), I32)
-    meta = jnp.stack([plens.astype(I32), sizes.astype(I32),
-                      z, z, z, z, z, z])[None]
-    lit, tok, mrec, counts = sp._decode_pallas(
-        buf[:, :Pw, :], meta, t_max, lw, tw, mw, interpret, wide, 1,
-        None, fused=True)
+    lit, tok, mrec, counts = coder.decode(
+        buf[:, :Pw, :], coder.make_meta(plens, sizes), lw, tw, mw)
     C = bs // CELL
     ism, dist, bad, tcur = _classify_cells(tok[0], mrec[0], sizes, C)
     # completeness: the cell model predicts exactly ntok tokens; a stream
@@ -554,18 +506,17 @@ def decode_rle_group(buf, plens, sizes, Pw: int, t_max: int, lw: int,
     # cell — its final bytes when the source is literal (the encoder's
     # dedup rule guarantees that), zeros otherwise (the zero-rule case:
     # pre[] of any non-literal cell is zeros by the preplace mask)
-    pre_f = pre.transpose(0, 2, 1).astype(jnp.float32)        # [C, CELL, B]
-    farfill = _gather_cells(src, pre_f, mask=isfar)
-    farfill = farfill.transpose(0, 2, 1).astype(jnp.uint8)    # [C, B, CELL]
+    farfill = _gather_cells(src, pre.transpose(0, 2, 1), mask=isfar)
+    farfill = farfill.transpose(0, 2, 1)                      # [C, B, CELL]
     out = _fill_cells(pre, ism, dist, farfill)                # [C, B, CELL]
     # far fills ASSUMED the source assembles to exactly those bytes (true
     # for this repo's encoder); verify out[c] == out[src] exactly — by
     # induction over cell index, a passing verify implies spec-correct
     # bytes (the copy's mandated content IS the assembled source cell)
     # even for foreign streams; any mismatch decodes on the host
-    out_f = out.transpose(0, 2, 1).astype(jnp.float32)        # [C, CELL, B]
-    got = _gather_cells(src, out_f, mask=isfar)
-    mism = jnp.any(got != out_f, axis=1)                      # [C, B]
+    out_c = out.transpose(0, 2, 1)                            # [C, CELL, B]
+    got = _gather_cells(src, out_c, mask=isfar)
+    mism = jnp.any(got != out_c, axis=1)                      # [C, B]
     bad = bad | jnp.any(isfar & mism, axis=0)
     blocks = out.transpose(1, 0, 2).reshape(B, bs)
     pos = jax.lax.broadcasted_iota(I32, (B, bs), 1)
@@ -625,8 +576,8 @@ def host_decode_blocks(payloads, sizes, idx, blocks_np):
         blocks_np[i, :sizes[i]] = np.frombuffer(out, np.uint8)
 
 
-def decompress_resident(blob: bytes, lanes: int = 512,
-                        interpret: bool = False, assembly: str = "auto"):
+def decompress_resident(blob: bytes, lanes: int = coder.DEC_LANES,
+                        assembly: str = "auto"):
     """Restore path: an sqzt sqz4 container -> a device-resident 1-D u8
     array. Payload bytes upload once; assembly runs on-device.
 
@@ -638,7 +589,7 @@ def decompress_resident(blob: bytes, lanes: int = 512,
                     stream — incl. compress_resident(mode="lz")
                     containers — with zero host byte assembly;
       * "auto"    — cell first, then the general assembly for lanes the
-                    cell model rejects, host only for kernel-flagged
+                    cell model rejects, host only for decoder-flagged
                     errors (i.e. genuinely corrupt blocks)."""
     if assembly not in ("auto", "cell", "general"):
         raise ValueError(f"unknown assembly {assembly!r}")
@@ -652,18 +603,13 @@ def decompress_resident(blob: bytes, lanes: int = 512,
         host_decode_blocks(payloads, sizes, range(NB), out)
         return jnp.asarray(out.reshape(-1)[:osize])
     from sqz_tpu.ops import lz_restore
-    plan = sp.plan_decode_dispatch(lanes, blk_bits, lanes=lanes, slots=1,
-                                   interpret=interpret)
-    dargs = dict(Pw=plan["Pw"], t_max=plan["t_max"], lw=plan["lw"],
-                 tw=plan["tw"], mw=plan["mw"], bs=bs, interpret=interpret,
-                 wide=blk_bits >= 15)
+    dargs = dict(coder.decode_dims(blk_bits), bs=bs)
     outs = []
     for g0 in range(0, NB, lanes):
         grp = payloads[g0:g0 + lanes]
         gsz = sizes[g0:g0 + lanes]
         n = len(grp)
-        buf, plens, szs, over = pack_payload_group(grp, gsz, dargs["Pw"],
-                                                   lanes)
+        buf, plens, szs, over = pack_payload_group(grp, gsz, dargs["Pw"], n)
         bufd, plensd, szsd = (jnp.asarray(buf), jnp.asarray(plens),
                               jnp.asarray(szs))
         decode = (lz_restore.decode_lz_group if assembly == "general"
@@ -672,14 +618,14 @@ def decompress_resident(blob: bytes, lanes: int = 512,
         bad_np = np.asarray(bad)[:n] | over[:n]
         if bad_np.any() and assembly == "auto":
             # not cell-parsed: the general assembly restores it on device
-            # (one more kernel pass over the group; rare by construction)
+            # (one more decoder pass over the group; rare by construction)
             gblocks, _gc, gbad = lz_restore.decode_lz_group(
                 bufd, plensd, szsd, **dargs)
             sel = jnp.asarray(bad_np & ~np.asarray(gbad)[:n])
             blocks = jnp.where(sel[:, None], gblocks[:n], blocks[:n])
             bad_np = bad_np & np.asarray(gbad)[:n]
         if bad_np.any():
-            # kernel-flagged (or oversized) blocks: genuinely corrupt —
+            # decoder-flagged (or oversized) blocks: genuinely corrupt —
             # the host decoder raises the precise errno, or decodes the
             # rare oversized-payload block
             fixed = np.array(blocks[:n])        # writable host copy
@@ -690,39 +636,31 @@ def decompress_resident(blob: bytes, lanes: int = 512,
     return jnp.concatenate(outs)[:osize]
 
 
-def encode_group_args(blk_bits: int, cap: int = None,
-                      interpret: bool = False) -> dict:
+def encode_group_args(blk_bits: int, cap: int = None) -> dict:
     """Static kwargs for encode_literal_group at this block size."""
     bs = 1 << blk_bits
     if cap is None:
         cap = bs + 2048
     return dict(Tt=_token_dim(bs), Lw=_lit_word_dim(bs),
-                t_max=_round_up(bs + 5, 32 if interpret else 1024),
-                cap_words=_round_up(-(-(cap + 3) // 4), 32),
-                interpret=interpret, wide=blk_bits >= 15)
+                cap_words=coder.cap_words_for(cap))
 
 
-def decode_group_args(B: int, blk_bits: int, cap_words: int,
-                      interpret: bool = False) -> dict:
+def decode_group_args(blk_bits: int, cap_words: int) -> dict:
     """Static kwargs for decode_literal_group matching an encode group."""
-    bs = 1 << blk_bits
-    plan = sp.plan_decode_dispatch(B, blk_bits, lanes=B, slots=1,
-                                   interpret=interpret)
-    return dict(Pw=min(cap_words, plan["Pw"]), t_max=plan["t_max"],
-                lw=plan["lw"], tw=plan["tw"], mw=plan["mw"], bs=bs,
-                interpret=interpret, wide=blk_bits >= 15)
+    dims = coder.decode_dims(blk_bits)
+    return dict(dims, Pw=min(cap_words, dims["Pw"]), bs=1 << blk_bits)
 
 
 def roundtrip_literal_device(blocks, lengths, blk_bits: int,
-                             cap: int = None, interpret: bool = False):
-    """Chip-resident round trip: [B, bs] u8 blocks -> encode -> decode,
+                             cap: int = None):
+    """Device-resident round trip: [B, bs] u8 blocks -> encode -> decode,
     returning (payload_lens [B] i32, out_blocks [B, bs] u8, counts) as
     DEVICE arrays. Used by bench.py's device-resident row and the tests;
-    nothing crosses the link between the two kernels."""
+    nothing crosses the link between the two coders."""
     B, bs = blocks.shape
     assert bs == 1 << blk_bits
-    eargs = encode_group_args(blk_bits, cap, interpret)
+    eargs = encode_group_args(blk_bits, cap)
     words, lens = encode_literal_group(blocks, lengths, **eargs)
-    dargs = decode_group_args(B, blk_bits, eargs["cap_words"], interpret)
+    dargs = decode_group_args(blk_bits, eargs["cap_words"])
     out, counts = decode_literal_group(words, lens, lengths, **dargs)
     return lens[0, 0, :], out, counts

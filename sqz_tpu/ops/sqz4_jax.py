@@ -1,4 +1,4 @@
-"""Block-parallel sqz4 codec on TPU (FORMAT.md §2).
+"""Block-parallel sqz4 codec as plain XLA scans (FORMAT.md §2).
 
 Encoder: tokens are expanded into a flat stream of micro-ops
 ``(model_id, symbol)`` — one range-coder encode each — padded to a common
@@ -273,10 +273,9 @@ def encode_scan_stats_impl(start, size, total, cap: int):
     computes (start, size, total) per op), so the device carries only the
     u64 coder registers: ~30 scalar u64 ops per block per step. Per-step
     emissions are stacked as scan outputs (sequential stores) and compacted
-    with ONE bulk scatter afterwards — indexed stores inside the loop are
-    ~130us/step on TPU, the dominant cost of the naive formulation. Streams
-    are byte-identical to encode_scan_impl (and to the production Pallas
-    kernels). Inputs: [B, T] uint32 each; total==0 marks a pad op, and
+    with ONE bulk scatter afterwards instead of indexed stores inside the
+    loop. Streams are byte-identical to encode_scan_impl (and to the
+    device coders, ops/coder.py). Inputs: [B, T] uint32 each; total==0 marks a pad op, and
     size==0 with total!=0 marks a flush emission.
     """
     B, T = start.shape
@@ -439,9 +438,8 @@ def _decode_scan(payloads, plens, sizes, out_cap: int, t_max: int,
     iota32 = jnp.arange(32, dtype=jnp.int32)
     dlen = 0 if dict_arr is None else dict_arr.shape[0]
 
-    # class-split model tables — dense (gather-free) per-step math; TPU
-    # gathers/scatters are element-serial, so the padded [B,36,256] layout
-    # cost ~ms per step. Initial freqs per reference sqz_init
+    # class-split model tables — dense (gather-free) per-step math instead
+    # of a padded [B,36,256] layout. Initial freqs per reference sqz_init
     # (src/sqz.c:550-565).
     if models0 is not None:
         Flit0, Fsize0, Fbyte0, Fbits0, Fdist0 = models0

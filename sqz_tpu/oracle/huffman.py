@@ -5,7 +5,7 @@ index-based: ``n`` terminals (power of two) occupy ids ``0..n-1``; internal
 nodes are carved downward from ``2n-3``; the root is ``2n-2``. Code paths are
 stored per node (bit k of ``path`` = branch taken at depth k, 0=left) and
 recomputed on restructure, exactly like the reference — this keeps the oracle
-observably identical field-by-field, which the TPU kernel tests rely on.
+observably identical field-by-field, which the device engine tests rely on.
 """
 
 from __future__ import annotations

@@ -47,9 +47,8 @@ class ModelSeed:
 
     Capture applies the normative rescale (FORMAT.md §3.1): per model,
     while total > 2^14, every nonzero freq becomes (freq+1)>>1. The cap
-    bounds warm-block model totals below 2^17 for blocks up to 64 KiB —
-    the exactness range of the device kernels' wide divider — while
-    keeping the frequency ratios (the modeling value) intact.
+    bounds warm-block model totals below 2^17 for blocks up to 64 KiB
+    while keeping the frequency ratios (the modeling value) intact.
     """
 
     WORDS = 2 + 256 + 256 + 32 + 64

@@ -1,14 +1,14 @@
 """Multi-host execution: bootstrap, per-process shard gather, host-0 assembly.
 
 The reference library is strictly single-threaded C (SURVEY.md §2.6;
-/root/reference/inc/rt/rt.h:26-28 only *includes* <threads.h>); multi-host
+reference inc/rt/rt.h:26-28 only *includes* <threads.h>); multi-host
 block parallelism is a new first-class subsystem here (BASELINE.md: >= 90 %
 scaling efficiency at N >= 2 hosts). The design:
 
 * every process runs the same jitted shard_map program over the global mesh
   (blocks axis spans all processes' devices);
-* the per-block compressed-length table is all-gathered ON DEVICE (rides
-  ICI in-slice / DCN across slices) and is therefore replicated — every
+* the per-block compressed-length table is all-gathered ON DEVICE and is
+  therefore replicated — every
   process knows every block's length;
 * payloads stay sharded; each process reads only its *addressable* shards
   (`jax.Array.addressable_shards`) — no global np.asarray, which would
@@ -33,15 +33,17 @@ import jax
 def bootstrap(coordinator_address: Optional[str] = None,
               num_processes: Optional[int] = None,
               process_id: Optional[int] = None,
-              auto: bool = False) -> None:
+              local_device_ids: Optional[Sequence[int]] = None) -> None:
     """Initialize jax.distributed for a multi-process run.
 
     No-op when neither arguments nor the standard environment
     (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID)
-    indicate one — UNLESS ``auto=True``, which calls
-    jax.distributed.initialize() with no arguments so a TPU-pod metadata
-    server can auto-detect the topology. Safe to call twice (the second
-    call is ignored).
+    indicate one; nothing detects a cluster, so a multi-process run names
+    its coordinator, process count and id. ``local_device_ids`` binds the
+    process to its own accelerators (one process per GPU: otherwise every
+    process would reserve most of the first card's memory); default: the
+    id list in JAX_LOCAL_DEVICE_IDS, else all local devices. Safe to call
+    twice (the second call is ignored).
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
@@ -49,16 +51,21 @@ def bootstrap(coordinator_address: Optional[str] = None,
         num_processes = int(os.environ["JAX_NUM_PROCESSES"])
     if process_id is None and "JAX_PROCESS_ID" in os.environ:
         process_id = int(os.environ["JAX_PROCESS_ID"])
-    if coordinator_address is None and num_processes is None and not auto:
+    if local_device_ids is None and os.environ.get("JAX_LOCAL_DEVICE_IDS"):
+        local_device_ids = [int(x) for x in
+                            os.environ["JAX_LOCAL_DEVICE_IDS"].split(",")]
+    if coordinator_address is None and num_processes is None:
         return                                     # single-process run
+    if coordinator_address is None or num_processes is None \
+            or process_id is None:
+        raise ValueError("a multi-process run needs the coordinator "
+                         "address, the process count and this process's id")
     try:
-        if coordinator_address is None and num_processes is None:
-            jax.distributed.initialize()           # pod metadata detection
-        else:
-            jax.distributed.initialize(
-                coordinator_address=coordinator_address,
-                num_processes=num_processes,
-                process_id=process_id)
+        jax.distributed.initialize(
+            coordinator_address=coordinator_address,
+            num_processes=num_processes,
+            process_id=process_id,
+            local_device_ids=local_device_ids)
     except RuntimeError as e:                      # already initialized
         # jax has raised both "...already initialized" and
         # "distributed.initialize should only be called once."
@@ -69,7 +76,7 @@ def bootstrap(coordinator_address: Optional[str] = None,
 
 def addressable_block_payloads(words, lens: np.ndarray,
                                n_blocks: int) -> List[Tuple[int, bytes]]:
-    """Extract this process's compressed blocks from a sharded kernel
+    """Extract this process's compressed blocks from a sharded encoder
     output.
 
     ``words``: jax.Array of shape [G, Pw, LANES] (u32 big-endian payload
@@ -97,7 +104,7 @@ def addressable_block_payloads(words, lens: np.ndarray,
 
 def addressable_lane_payloads(words, lens: np.ndarray,
                               n_blocks: int) -> List[Tuple[int, bytes]]:
-    """Same extraction for the lane-sharded kernel layout: ``words`` is a
+    """Same extraction for the lane-sharded encoder layout: ``words`` is a
     jax.Array [1, Pw, B] (u32 big-endian payload words) sharded over the
     LAST (lane) axis — the device-LZ sharded path, where the plan stages
     keep blocks on the lane axis end-to-end."""
@@ -178,7 +185,7 @@ def pack_exchange_row(
     """One process's exchange row: (sorted global ids, concatenated payload
     bytes in id order). ``lens`` (the replicated length table): each
     payload is padded to its table length so the unpack side's offsets
-    stay aligned even when a block's bytes were clamped at the kernel
+    stay aligned even when a block's bytes were clamped at the encoder
     buffer (the oversized-warm-block case — those blocks are re-encoded
     on host 0 afterwards, the exchange only has to keep neighbors intact)."""
     my_ids = np.array(sorted(b for b, _ in local_blocks), np.int64)

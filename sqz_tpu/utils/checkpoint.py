@@ -3,7 +3,7 @@
 The flagship use of the resident paths (ops/resident.py): a pytree of
 device arrays (model/optimizer state) compresses WITHOUT the host
 touching the data — each leaf is bitcast to bytes on-device, cell-parsed
-and coded by the token kernel, and only payload bytes cross the link to
+and coded by the device encoder, and only payload bytes cross the link to
 disk. Restore mirrors it: payload bytes upload once and the decoded
 bytes are assembled on-device, bitcast back to the leaf dtype/shape.
 
@@ -11,7 +11,7 @@ File layout (versioned): magic ``SQZCKPT1`` + u32 metadata length + a
 pickled metadata dict (treedef, per-leaf shape/dtype/nbytes/filters/
 stream offset) + ONE sqzt container holding every leaf's filtered byte
 stream concatenated on-device — small leaves share blocks and the whole
-tree codes as one batched kernel dispatch instead of one underfilled
+tree codes as one batched encoder dispatch instead of one underfilled
 lane group per leaf.
 """
 
@@ -59,9 +59,8 @@ def _undelta_device(flat):
 
 
 def save_pytree(tree, path, blk_bits: int = 16, mode: str = "rle",
-                shuffle: bool = True, delta: bool = True,
-                interpret: bool = False, mesh=None,
-                lanes: int = 128) -> dict:
+                shuffle: bool = True, delta: bool = True, mesh=None,
+                lanes: int = None) -> dict:
     """Compress a pytree of (device) arrays to ``path`` via
     compress_resident. Returns a stats dict (raw/compressed bytes).
 
@@ -97,8 +96,7 @@ def save_pytree(tree, path, blk_bits: int = 16, mode: str = "rle",
     stream = jnp.concatenate(streams) if streams \
         else jnp.zeros((0,), jnp.uint8)
     blob = sqz_tpu.compress_resident(stream, blk_bits=blk_bits,
-                                     mode=mode, interpret=interpret,
-                                     mesh=mesh, lanes=lanes)
+                                     mode=mode, mesh=mesh, lanes=lanes)
     if blob is None:                    # non-zero process of a multi-host mesh
         return None
     meta = pickle.dumps(dict(treedef=treedef, leaves=metas,
@@ -112,8 +110,7 @@ def save_pytree(tree, path, blk_bits: int = 16, mode: str = "rle",
                 ratio=len(blob) / raw if raw else 0.0)
 
 
-def load_pytree(path, interpret: bool = False, mesh=None,
-                lanes: int = 128):
+def load_pytree(path, mesh=None, lanes: int = None):
     """Restore a pytree saved by save_pytree: containers decode through
     the device-resident restore path (decompress_resident), leaves are
     bitcast back on-device. ``mesh``: restore with blocks sharded over
@@ -124,9 +121,8 @@ def load_pytree(path, interpret: bool = False, mesh=None,
         raise ValueError("not a sqz-tpu checkpoint")
     (mlen,) = struct.unpack("<I", data[8:12])
     meta = pickle.loads(data[12:12 + mlen])
-    stream = sqz_tpu.decompress_resident(data[12 + mlen:],
-                                         interpret=interpret,
-                                         mesh=mesh, lanes=lanes)
+    stream = sqz_tpu.decompress_resident(data[12 + mlen:], mesh=mesh,
+                                         lanes=lanes)
     leaves = []
     for m in meta["leaves"]:
         dtype = jnp.dtype(m["dtype"])

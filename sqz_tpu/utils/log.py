@@ -4,9 +4,7 @@ The reference prefixes every debug line with ``file(line): function`` from a
 thread-local buffer. Here: a stdlib logger whose formatter produces the same
 prefix shape, resolved from the caller's frame — enable with
 ``SQZ_DEBUG=1`` (or ``configure(True)``), off by default exactly like the
-reference's debug-build gating. Kernel-side debugging uses
-``pl.debug_print`` (interpret mode), which this module intentionally does
-not wrap.
+reference's debug-build gating.
 """
 
 from __future__ import annotations

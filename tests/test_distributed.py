@@ -54,23 +54,17 @@ def test_dryrun_multichip_entrypoints():
 
 @pytest.mark.slow
 def test_pallas_encoder_sharded_wide_totals():
-    """blk_bits >= 15 regression: a 32 KiB literal-heavy block drives model
-    totals past 2^15, where the base-2^16 divider is inexact — the sharded
-    path must select the wide (base-2^14) divider exactly like
-    encode_data_full does. (Advisor round-1 high finding.)"""
-    from sqz_tpu import native
-    if not native.available():
-        pytest.skip("native runtime unavailable")
+    """A 32 KiB literal-heavy block drives model totals past 2^15; the
+    sharded device encoder must stay exact there."""
     from sqz_tpu.oracle.sqz4 import sqz4_encode_payload
     from sqz_tpu.parallel.mesh import make_mesh
-    from sqz_tpu.parallel.shard import encode_data_sharded_pallas
+    from sqz_tpu.parallel.shard import encode_data_sharded
 
     rng = np.random.default_rng(5)
     # incompressible -> all literals -> pm_byte total 256 + 32768 > 2^15
     data = bytes(rng.integers(0, 256, 33000, np.uint8))
     mesh = make_mesh(2)
-    payloads = encode_data_sharded_pallas(data, 15, 1 << 15, mesh,
-                                          lanes=128, tc=64, interpret=True)
+    payloads = encode_data_sharded(data, 15, 1 << 15, mesh)
     bs = 1 << 15
     for i in range(2):
         blk = data[i * bs:(i + 1) * bs]
@@ -78,18 +72,21 @@ def test_pallas_encoder_sharded_wide_totals():
 
 
 def test_pallas_encoder_sharded_over_mesh():
-    """The Pallas coder runs per-device under shard_map (interpret mode on
-    the virtual CPU mesh); payloads match the oracle."""
+    """The device encoder runs per-device under shard_map (the CPU target
+    on the virtual mesh); payloads match the oracle, also with per-device
+    lane groups and a block count that does not fill the mesh."""
     import numpy as np
     from sqz_tpu.oracle.sqz4 import sqz4_encode_payload
     from sqz_tpu.parallel.mesh import make_mesh
-    from sqz_tpu.parallel.shard import encode_data_sharded_pallas
+    from sqz_tpu.parallel.shard import encode_data_sharded
 
     mesh = make_mesh(4)
     rng = np.random.default_rng(5)
     data = bytes(rng.integers(0, 8, 4 * 256, np.uint8))
-    payloads = encode_data_sharded_pallas(data, 8, 1 << 10, mesh,
-                                          lanes=128, tc=64, interpret=True)
+    payloads = encode_data_sharded(data, 8, 1 << 10, mesh)
+    assert payloads == encode_data_sharded(data, 8, 1 << 10, mesh, lanes=1)
+    assert encode_data_sharded(data[:700], 8, 1 << 10, mesh) == \
+        payloads[:2] + [sqz4_encode_payload(data[512:700], 1 << 10)]
     for i in range(4):
         blk = data[i * 256:(i + 1) * 256]
         assert payloads[i] == sqz4_encode_payload(blk, 1 << 10, lz=True)
@@ -97,8 +94,8 @@ def test_pallas_encoder_sharded_over_mesh():
 
 def test_sharded_warm_seeding():
     """sqzt v2 warm start over the mesh: the scan path shards per-block
-    model tables with their blocks; the Pallas path broadcasts the seed
-    table into every device's shard (FORMAT.md §3.1)."""
+    model tables with their blocks; the device coder path broadcasts the
+    seed table into every device's shard (FORMAT.md §3.1)."""
     from sqz_tpu import native
     if not native.available():
         pytest.skip("native runtime unavailable")
@@ -106,7 +103,7 @@ def test_sharded_warm_seeding():
     from sqz_tpu.ops.sqz4_jax import seed_from_tokens
     from sqz_tpu.parallel.mesh import make_mesh
     from sqz_tpu.parallel.shard import (encode_blocks_sharded,
-                                        encode_data_sharded_pallas)
+                                        encode_data_sharded)
     from sqz_tpu.utils import corpus
 
     mesh = make_mesh(4)
@@ -121,16 +118,15 @@ def test_sharded_warm_seeding():
         want = sqz4_encode_payload(blk, 1 << 8, lz=False,
                                    seed=seed if i else None)
         assert payloads[i] == want, f"scan block {i}"
-    # pallas path: all-seeded pass with dictionary-aware planning
-    pw = encode_data_sharded_pallas(data, 8, 1 << 8, mesh, lanes=128,
-                                    tc=64, interpret=True, warm=True)
+    # device-coder path: all-seeded pass with dictionary-aware planning
+    pw = encode_data_sharded(data, 8, 1 << 8, mesh, warm=True)
     _, seed_p = sqz4_encode_payload(blocks[0], 1 << 8, lz=True,
                                     return_state=True)
     for i, blk in enumerate(blocks):
         want = sqz4_encode_payload(
             blk, 1 << 8, lz=True, seed=seed_p if i else None,
             dictionary=blocks[0][-(1 << 8):] if i else b"")
-        assert pw[i] == want, f"pallas block {i}"
+        assert pw[i] == want, f"device block {i}"
 
 
 def test_decode_blocks_sharded():
@@ -160,7 +156,7 @@ def test_decode_blocks_sharded():
 
 def test_sharded_lz_matches_single_device(mesh8, monkeypatch):
     """Device-LZ multi-chip surface (VERDICT r4 #3): the global-view plan
-    stages + shard_map token kernel over the mesh must produce payloads
+    stages + shard_map device encoder over the mesh must produce payloads
     byte-identical to the single-device resident-LZ path, and every block
     must round-trip through the oracle decoder."""
     from sqz_tpu.oracle.sqz4 import sqz4_decode_payload
@@ -173,9 +169,8 @@ def test_sharded_lz_matches_single_device(mesh8, monkeypatch):
     bs = 256
     nb = -(-len(data) // bs)
     sharded = encode_resident_sharded(data, 8, mesh8, mode="lz",
-                                      lanes=128, interpret=True)
-    single = encode_resident_blocks(data, 8, "lz", lanes=128,
-                                    interpret=True)
+                                      lanes=3)
+    single = encode_resident_blocks(data, 8, "lz", lanes=128)
     assert sharded == single
     for i in range(nb):
         sz = min(bs, len(data) - i * bs)

@@ -123,12 +123,10 @@ def test_fuzz_device_scan_agrees(fmt):
 
 
 def test_fuzz_pallas_decoder_interpret():
-    """A small corrupt-stream sample through the MOSAIC decode kernel
-    (interpret mode): where the native host decoder accepts, the kernel
-    must reproduce the bytes; where it rejects, the kernel must not
-    silently return the pristine data. (The kernel's f32-estimate division
-    and error lanes are exactly the divergence risk this pins.)"""
-    from sqz_tpu.ops import sqz4_pallas as sp
+    """A small corrupt-stream sample through the device decoder (its CPU
+    target): it must reproduce exactly what the native host decoder
+    produces, and reject exactly when the host rejects."""
+    from sqz_tpu.ops import coder
     small = DATA[:256]
     payload = native.sqz4_compress_payload(small, 1 << 10)
     rng = np.random.default_rng(0xD1CE)
@@ -139,14 +137,14 @@ def test_fuzz_pallas_decoder_interpret():
         except Exception:
             sn, out_n = "err", None
         try:
-            out_d = sp.decode_groups([mut], [256], 8, interpret=True)[0]
+            out_d = coder.decode_groups([mut], [256], 8)[0]
             sd = "ok"
         except Exception:
             sd, out_d = "err", None
-        if sn == "ok":
+        if sn == "ok" and len(out_n) == 256:
             assert sd == "ok" and out_d == out_n
         else:
-            assert not (sd == "ok" and out_d == small)
+            assert sd == "err"
 
 
 def test_fuzz_container_forgery():

@@ -23,10 +23,9 @@ def _no_host(monkeypatch):
 
 
 def _roundtrip(data, blk_bits, mode, monkeypatch, assembly):
-    blob = sqz_tpu.compress_resident(data, blk_bits=blk_bits, mode=mode,
-                                     interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=blk_bits, mode=mode)
     _no_host(monkeypatch)
-    out = sqz_tpu.decompress_resident(blob, interpret=True,
+    out = sqz_tpu.decompress_resident(blob,
                                       assembly=assembly)
     assert np.asarray(out).tobytes() == data
 
@@ -71,28 +70,26 @@ def test_foreign_exact_parse_streams(monkeypatch):
     from sqz_tpu.formats.constants import SQZT_FORMAT_SQZ4
     blob = sqzt.pack(SQZT_FORMAT_SQZ4, 15, 10, len(data), payloads, None)
     _no_host(monkeypatch)
-    out = sqz_tpu.decompress_resident(blob, interpret=True,
+    out = sqz_tpu.decompress_resident(blob,
                                       assembly="general")
     assert np.asarray(out).tobytes() == data
 
 
 def test_corrupt_block_flags_bad_lane():
     data = corpus.texty(3 * 256, seed=9)
-    blob = sqz_tpu.compress_resident(data, blk_bits=8, mode="lz",
-                                     interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=8, mode="lz")
     bad = bytearray(blob)
     bad[-7] ^= 0x5A                       # flip a payload byte
     with pytest.raises(Exception):
-        sqz_tpu.decompress_resident(bytes(bad), interpret=True,
+        sqz_tpu.decompress_resident(bytes(bad),
                                     assembly="general")
 
 
 def test_assembly_param_validation():
     data = corpus.texty(256, seed=0)
-    blob = sqz_tpu.compress_resident(data, blk_bits=8, mode="lit",
-                                     interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=8, mode="lit")
     with pytest.raises(ValueError):
-        sqz_tpu.decompress_resident(blob, interpret=True,
+        sqz_tpu.decompress_resident(blob,
                                     assembly="bogus")
 
 
@@ -108,11 +105,9 @@ def test_sharded_restore_general_fallback(monkeypatch):
 
     mesh = make_mesh(4)
     data = corpus.texty(9 * 256, seed=11) + b"zz0" * 120
-    blob = sqz_tpu.compress_resident(data, blk_bits=8, mode="lz",
-                                     interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=8, mode="lz")
     _no_host(monkeypatch)
-    out = decompress_resident_sharded(blob, mesh, lanes=128,
-                                      interpret=True)
+    out = decompress_resident_sharded(blob, mesh, lanes=128)
     assert np.asarray(out).tobytes() == data
 
 
@@ -123,12 +118,11 @@ def test_corrupt_mutants_flag_or_match():
     device bytes must MATCH the host's (no silent divergence)."""
     import jax.numpy as jnp
 
-    from sqz_tpu.ops import lz_restore, sqz4_pallas as sp
+    from sqz_tpu.ops import coder, lz_restore
 
     data = corpus.texty(8 * 256, seed=21) + bytes(300) + b"pqr" * 150
     bs = 256
-    payloads = resident.encode_resident_blocks(data, 8, "lz", lanes=32,
-                                               interpret=True)
+    payloads = resident.encode_resident_blocks(data, 8, "lz", lanes=32)
     nb = len(payloads)
     sizes = [min(bs, len(data) - b * bs) for b in range(nb)]
     rng = np.random.default_rng(5)
@@ -138,12 +132,8 @@ def test_corrupt_mutants_flag_or_match():
         p = bytearray(payloads[b])
         p[int(rng.integers(len(p)))] ^= int(rng.integers(1, 256))
         muts.append((bytes(p), sizes[b]))
-    lanes = 128
-    plan = sp.plan_decode_dispatch(lanes, 8, lanes=lanes, slots=1,
-                                   interpret=True)
-    dargs = dict(Pw=plan["Pw"], t_max=plan["t_max"], lw=plan["lw"],
-                 tw=plan["tw"], mw=plan["mw"], bs=bs, interpret=True,
-                 wide=False)
+    lanes = len(muts)
+    dargs = dict(coder.decode_dims(8), bs=bs)
     buf, plens, szs, over = resident.pack_payload_group(
         [m[0] for m in muts], [m[1] for m in muts], dargs["Pw"], lanes)
     blocks, _c, bad = lz_restore.decode_lz_group(

@@ -26,18 +26,15 @@ def _mixed(n: int) -> bytes:
 
 def test_lz_resident_roundtrip_all_decoders():
     data = _mixed(6 * 512 + 123)            # tail block shorter than bs
-    blob = sqz_tpu.compress_resident(data, blk_bits=9, mode="lz",
-                                     interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=9, mode="lz")
     assert sqz_tpu.decompress(blob, engine="native") == data
     assert sqz_tpu.decompress(blob, engine="oracle") == data
 
 
 def test_lz_beats_literal_only_on_repetitive_content():
     data = (corpus.texty(2048, seed=1) * 3)[:4096]
-    lz = resident.encode_resident_blocks(data, 10, mode="lz",
-                                         interpret=True)
-    lit = resident.encode_resident_blocks(data, 10, mode="lit",
-                                          interpret=True)
+    lz = resident.encode_resident_blocks(data, 10, mode="lz")
+    lit = resident.encode_resident_blocks(data, 10, mode="lit")
     parts = [data[o:o + 1024] for o in range(0, len(data), 1024)]
     for b, p in enumerate(lz):
         assert native.sqz4_decompress_payload(p, len(parts[b])) == parts[b]
@@ -55,7 +52,7 @@ def test_lz_token_budget_demotes_to_literal():
     arr[0] = np.frombuffer(blk, np.uint8)
     arr[1] = rng.integers(0, 256, 512, dtype=np.uint8)
     lens = np.full((8,), 512, np.int32)
-    toks, lits, pairs, demote = lzparse.lz_plan_device(
+    toks, lits, demote = lzparse.lz_plan_device(
         jnp.asarray(arr), jnp.asarray(lens), Tt=4)
     dem = np.asarray(demote)
     assert dem.any(), "tiny token budget must demote some lane"
@@ -68,10 +65,8 @@ def test_lz_token_budget_demotes_to_literal():
 
 def test_lz_blocks_smaller_than_segment_fall_back_to_literal():
     data = corpus.texty(700, seed=2)
-    got = resident.encode_resident_blocks(data, 7, mode="lz",
-                                          interpret=True)
-    want = resident.encode_resident_blocks(data, 7, mode="lit",
-                                           interpret=True)
+    got = resident.encode_resident_blocks(data, 7, mode="lz")
+    want = resident.encode_resident_blocks(data, 7, mode="lit")
     assert got == want
 
 
@@ -86,19 +81,19 @@ def test_lz_segmented_sort_and_gather_verify_roundtrip(seg, verify):
     data = _mixed(8 * 1024)
     bs = 1 << 10
     parts = [data[o:o + bs] for o in range(0, len(data), bs)]
-    arr = np.zeros((128, bs), np.uint8)         # kernel lane group
+    arr = np.zeros((128, bs), np.uint8)         # one encoder lane group
     arr[:len(parts)] = np.frombuffer(data, np.uint8).reshape(-1, bs)
     lanes = np.zeros((128,), np.int32)
     lanes[:len(parts)] = bs
     lens = jnp.asarray(lanes)
-    gargs = lzparse.lz_group_args(10, interpret=True)
+    gargs = lzparse.lz_group_args(10)
     gargs.update(seg=seg, verify=verify)
     words, lens_out = lzparse.encode_lz_group(jnp.asarray(arr), lens,
                                               **gargs)
-    from sqz_tpu.ops import sqz4_pallas as sp
+    from sqz_tpu.ops import coder
     lens_np = np.asarray(lens_out)
-    payloads = sp.unpack_group_payloads(
-        sp.fetch_words_trimmed(words, lens_np), lens_np, len(parts))
+    payloads = coder.unpack_group_payloads(
+        coder.fetch_words_trimmed(words, lens_np), lens_np, len(parts))
     for b, p in enumerate(payloads):
         assert native.sqz4_decompress_payload(p, bs) == parts[b]
     if seg >= bs // 2:
@@ -109,8 +104,8 @@ def test_lz_segmented_sort_and_gather_verify_roundtrip(seg, verify):
         g0 = dict(gargs, seg=0, verify="carry")
         w0, l0 = lzparse.encode_lz_group(jnp.asarray(arr), lens, **g0)
         l0np = np.asarray(l0)
-        full = sp.unpack_group_payloads(
-            sp.fetch_words_trimmed(w0, l0np), l0np, len(parts))
+        full = coder.unpack_group_payloads(
+            coder.fetch_words_trimmed(w0, l0np), l0np, len(parts))
         d = (sum(map(len, payloads)) - sum(map(len, full))) / len(data)
         assert d <= 0.015, f"segmented sort lost {d*100:.2f} pp"
 
@@ -122,30 +117,28 @@ def test_lz_matches_are_exact_on_adversarial_near_repeats():
     for i in range(13, 1024, 97):
         base[i] ^= 0x55
     data = bytes(base) * 2
-    blob = sqz_tpu.compress_resident(data, blk_bits=10, mode="lz",
-                                     interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=10, mode="lz")
     assert sqz_tpu.decompress(blob, engine="native") == data
 
 
 def test_lz_group_pads_unaligned_lane_counts():
-    # encode_lz_group pads lane groups to vreg multiples (32 under
-    # interpret) with EOS-only lanes and slices the outputs back —
-    # direct callers need not align B themselves
+    # encode_lz_group takes any lane count: direct callers need not
+    # align B to anything
     import jax.numpy as jnp
 
-    from sqz_tpu.ops import sqz4_pallas as sp
+    from sqz_tpu.ops import coder
     bs = 512
     B = 40                                   # not a multiple of 32
     data = _mixed(B * bs)
     arr = np.frombuffer(data, np.uint8).reshape(B, bs)
     lens = jnp.asarray(np.full((B,), bs, np.int32))
-    gargs = lzparse.lz_group_args(9, interpret=True)
+    gargs = lzparse.lz_group_args(9)
     words, lzlens = lzparse.encode_lz_group(jnp.asarray(arr), lens,
                                             **gargs)
     assert words.shape[-1] == B and lzlens.shape[-1] == B
     lnp = np.asarray(lzlens)
-    payloads = sp.unpack_group_payloads(
-        sp.fetch_words_trimmed(words, lnp), lnp, B)
+    payloads = coder.unpack_group_payloads(
+        coder.fetch_words_trimmed(words, lnp), lnp, B)
     for b, p in enumerate(payloads):
         assert native.sqz4_decompress_payload(
             p, bs) == data[b * bs:(b + 1) * bs], f"lane {b}"

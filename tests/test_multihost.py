@@ -133,8 +133,7 @@ def test_two_process_real_exchange(tmp_path):
     old = _os.environ.get("SQZ_LZ_SORT_ROWS")
     _os.environ["SQZ_LZ_SORT_ROWS"] = "2"
     try:
-        lz_want = encode_resident_blocks(lzdata, 8, "lz", lanes=128,
-                                         interpret=True)
+        lz_want = encode_resident_blocks(lzdata, 8, "lz", lanes=128)
     finally:
         if old is None:
             _os.environ.pop("SQZ_LZ_SORT_ROWS", None)

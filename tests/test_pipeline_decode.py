@@ -1,47 +1,41 @@
-"""Pipelined decode (ops/pipeline.decode_data_pipelined): chunked
-dispatch + packer-thread overlap must be output-identical to
-decode_groups — chunking only batches dispatches; blocks are independent
-(SURVEY §2.6). Interpret mode; the decode kernel needs lanes % 128 == 0,
-so multi-chunk coverage uses 130 tiny 32-byte blocks (2 chunks at
-lanes=128) to stay inside the interpret cost envelope."""
+"""Chunked device decode (coder.decode_groups with ``lanes`` below the block
+count): every chunk's download + assembly overlaps the next chunk's
+decode, and the output must be identical to one dispatch of all blocks —
+chunking only batches dispatches; blocks are independent (SURVEY §2.6).
+130 tiny 32-byte blocks give 2 chunks at lanes=128 and 5 at lanes=32, on
+the decoder's CPU target."""
 
 from __future__ import annotations
 
 import pytest
 
 from sqz_tpu import native
-from sqz_tpu.ops import pipeline
-from sqz_tpu.ops import sqz4_pallas as sp
+from sqz_tpu.ops import coder
 from sqz_tpu.utils.corpus import load
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native runtime unavailable")
 
-NB, BS = 130, 32                               # 2 chunks at lanes=128
+NB, BS = 130, 32
 
 
-@pytest.fixture(params=["serial", "thread"])
-def dec_pipe_mode(request, monkeypatch):
-    """Both decode_data_pipelined modes: the default decode_groups
-    delegation (measured faster on this host, PERF.md round 4) and the
-    threaded packer (SQZ_DEC_PIPE=thread, for many-core hosts)."""
-    monkeypatch.setenv("SQZ_DEC_PIPE", request.param)
+@pytest.fixture(params=[128, 32], ids=["lanes128", "lanes32"])
+def lanes(request):
+    """Chunk widths: one full chunk plus a 2-block tail, and five chunks."""
     return request.param
 
 
-def test_pipelined_decode_matches_decode_groups(dec_pipe_mode):
+def test_pipelined_decode_matches_decode_groups(lanes):
     data = bytes(load("laozi.txt"))[:NB * BS]
     payloads = native.blocks_compress(data, 1, 10, 5)
     sizes = [BS] * NB
-    ref = sp.decode_groups(payloads, sizes, blk_bits=5, interpret=True)
-    got = pipeline.decode_data_pipelined(payloads, sizes, blk_bits=5,
-                                         interpret=True, lanes=128,
-                                         slots=1)
+    ref = coder.decode_groups(payloads, sizes, blk_bits=5, lanes=NB)
+    got = coder.decode_groups(payloads, sizes, blk_bits=5, lanes=lanes)
     assert got == ref
     assert b"".join(got) == data
 
 
-def test_pipelined_decode_seeded_chunks(dec_pipe_mode):
+def test_pipelined_decode_seeded_chunks(lanes):
     """Warm batches (one seed/dictionary for every block in the call) go
     through the same chunked path."""
     raw = bytes(load("confucius.txt"))[:(NB + 1) * BS]
@@ -54,38 +48,34 @@ def test_pipelined_decode_seeded_chunks(dec_pipe_mode):
                                              seed=seed, dictionary=dic)
                 for b in blocks]
     sizes = [len(b) for b in blocks]
-    got = pipeline.decode_data_pipelined(payloads, sizes, blk_bits=5,
-                                         seed=seed, dictionary=dic,
-                                         interpret=True, lanes=128,
-                                         slots=1)
+    got = coder.decode_groups(payloads, sizes, blk_bits=5, seed=seed,
+                              dictionary=dic, lanes=lanes)
     assert b"".join(got) == b"".join(blocks)
 
 
-def test_pipelined_decode_corrupt_block_raises(dec_pipe_mode):
+def test_pipelined_decode_corrupt_block_raises(lanes):
     data = bytes(load("laozi.txt"))[:NB * BS]
     payloads = native.blocks_compress(data, 1, 10, 5)
     bad = list(payloads)
-    mid = bytearray(bad[129])                  # a second-chunk block
+    mid = bytearray(bad[129])                  # the last block
     mid[len(mid) // 2] ^= 0x10
     bad[129] = bytes(mid)
-    with pytest.raises(ValueError):
-        pipeline.decode_data_pipelined(bad, [BS] * NB, blk_bits=5,
-                                       interpret=True, lanes=128, slots=1)
+    with pytest.raises(ValueError, match=r"\[129\]"):
+        coder.decode_groups(bad, [BS] * NB, blk_bits=5, lanes=lanes)
 
 
-def test_pipelined_decode_all_payloads_oversized(dec_pipe_mode):
-    """Every payload past the kernel's stream buffer (the pathological
-    warm-expansion rule): the pipelined path must return the host-decoded
+def test_pipelined_decode_all_payloads_oversized(lanes):
+    """Every payload past the decoder's stream rows (the pathological
+    warm-expansion rule): the chunked path must return the host-decoded
     blocks instead of dispatching an empty chunk. Oversize is forced by
     padding valid payloads with trailing junk — the decoder stops at EOS,
     so the host decode still yields the original bytes."""
     data = bytes(load("laozi.txt"))[:4 * BS]
     blocks = [data[i:i + BS] for i in range(0, len(data), BS)]
-    plan = sp.plan_decode_dispatch(len(blocks), 5, 128, 1, interpret=True)
+    Pw = coder.decode_dims(5)["Pw"]
     over_pl = [native.sqz4_compress_payload(b, 1 << 10, lz=True)
-               .ljust(4 * plan["Pw"] + 8, b"\0") for b in blocks]
-    assert all(len(p) > 4 * plan["Pw"] for p in over_pl)
-    got = pipeline.decode_data_pipelined(over_pl, [BS] * len(blocks),
-                                         blk_bits=5, interpret=True,
-                                         lanes=128, slots=1)
+               .ljust(4 * Pw + 8, b"\0") for b in blocks]
+    assert all(len(p) > 4 * Pw for p in over_pl)
+    got = coder.decode_groups(over_pl, [BS] * len(blocks), blk_bits=5,
+                              lanes=lanes)
     assert got == blocks

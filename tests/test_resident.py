@@ -18,8 +18,7 @@ pytestmark = pytest.mark.skipif(not native.available(),
 
 def test_resident_encode_bit_exact_vs_native():
     data = corpus.texty(3 * 256 + 100, seed=7)
-    payloads = resident.encode_literal_blocks(data, 8, lanes=128,
-                                              interpret=True)
+    payloads = resident.encode_literal_blocks(data, 8, lanes=128)
     parts = split_blocks(data, 8)
     want = [native.sqz4_compress_payload(p, 1 << 8, lz=False)
             for p in parts]
@@ -28,8 +27,7 @@ def test_resident_encode_bit_exact_vs_native():
 
 def test_resident_encode_empty_and_tiny():
     for data in (b"", b"Z"):
-        payloads = resident.encode_literal_blocks(data, 8, lanes=128,
-                                                  interpret=True)
+        payloads = resident.encode_literal_blocks(data, 8, lanes=128)
         parts = split_blocks(data, 8)
         want = [native.sqz4_compress_payload(p, 1 << 8, lz=False)
                 for p in parts]
@@ -47,7 +45,7 @@ def test_resident_roundtrip_on_device():
         arr[b, :len(blk)] = np.frombuffer(blk, np.uint8)
         lengths[b] = len(blk)
     plens, out, counts = resident.roundtrip_literal_device(
-        jnp.asarray(arr), jnp.asarray(lengths), 8, interpret=True)
+        jnp.asarray(arr), jnp.asarray(lengths), 8)
     counts = np.asarray(counts)
     assert int(counts[0, 4].max()) == 0, "decoder error lane set"
     assert np.array_equal(np.asarray(counts)[0, 0, :NB], lengths[:NB])
@@ -134,8 +132,7 @@ def test_resident_rle_bit_exact_vs_scan_engine():
     same cell parse (stream identity is parse-determined)."""
     from sqz_tpu.ops import sqz4_jax
     for data in _rle_cases():
-        payloads = resident.encode_rle_blocks(data, 10, lanes=128,
-                                              interpret=True)
+        payloads = resident.encode_rle_blocks(data, 10, lanes=128)
         parts = split_blocks(data, 10)
         want = sqz4_jax.encode_blocks(
             [_cell_parse_tokens(p) for p in parts], blk_bits=10)
@@ -150,9 +147,8 @@ def test_resident_rle_ratio_beats_literal_only_on_runs():
     # coder's fixed 8-byte flush dominates (66 vs 126 B measured), so the
     # margin here is conservative — at 64 KiB blocks the gap is ~10x
     data = bytes(4096)
-    rle = resident.encode_rle_blocks(data, 10, lanes=128, interpret=True)
-    lit = resident.encode_literal_blocks(data, 10, lanes=128,
-                                         interpret=True)
+    rle = resident.encode_rle_blocks(data, 10, lanes=128)
+    lit = resident.encode_literal_blocks(data, 10, lanes=128)
     assert sum(len(p) for p in rle) < 0.7 * sum(len(p) for p in lit)
 
 
@@ -168,9 +164,9 @@ def test_resident_sharded_over_mesh():
         bytes(1024) + corpus.texty(420, seed=14)
     for mode in ("rle", "lit"):
         got = encode_resident_sharded(data, 10, mesh, mode=mode,
-                                      lanes=128, interpret=True)
+                                      lanes=128)
         want = resident.encode_resident_blocks(data, 10, mode,
-                                               lanes=128, interpret=True)
+                                               lanes=128)
         assert got == want, mode
 
 
@@ -184,10 +180,10 @@ def test_compress_resident_container_all_engines():
     data = bytes(512) + corpus.texty(700, seed=9) + b"ab" * 200
     for mode in ("rle", "lit"):
         blob_b = sqz_tpu.compress_resident(data, blk_bits=10, mode=mode,
-                                           checksum=True, interpret=True)
+                                           checksum=True)
         arr = jnp.asarray(np.frombuffer(data, np.uint8))
         blob_a = sqz_tpu.compress_resident(arr, blk_bits=10, mode=mode,
-                                           checksum=True, interpret=True)
+                                           checksum=True)
         assert blob_a == blob_b, mode
         assert sqz_tpu.decompress(blob_b, engine="native") == data, mode
         assert sqz_tpu.decompress(blob_b, engine="oracle") == data, mode
@@ -201,10 +197,8 @@ def test_decompress_resident_device_restore():
     across every cell-parse decision class."""
     import sqz_tpu
     for data in _rle_cases():
-        blob = sqz_tpu.compress_resident(data, blk_bits=10, mode="rle",
-                                         interpret=True)
-        out = resident.decompress_resident(blob, lanes=128,
-                                           interpret=True)
+        blob = sqz_tpu.compress_resident(data, blk_bits=10, mode="rle")
+        out = resident.decompress_resident(blob, lanes=128)
         assert np.asarray(out).tobytes() == data, f"case {data[:16]!r}"
 
 
@@ -218,10 +212,9 @@ def test_decompress_resident_uses_device_path(monkeypatch):
         raise AssertionError("host fallback used on a cell-parsed stream")
 
     data = bytes(1024) + corpus.texty(1024, seed=17)
-    blob = sqz_tpu.compress_resident(data, blk_bits=10, mode="rle",
-                                     interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=10, mode="rle")
     monkeypatch.setattr(resident, "host_decode_blocks", _boom)
-    out = resident.decompress_resident(blob, lanes=128, interpret=True)
+    out = resident.decompress_resident(blob, lanes=128)
     assert np.asarray(out).tobytes() == data
 
 
@@ -230,9 +223,8 @@ def test_resident_tiny_blocks_degrade_cleanly():
     literal mode and the restore path host-decodes — both round-trip."""
     import sqz_tpu
     data = corpus.texty(500, seed=19)
-    blob = sqz_tpu.compress_resident(data, blk_bits=6, mode="rle",
-                                     interpret=True)
-    out = resident.decompress_resident(blob, lanes=128, interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=6, mode="rle")
+    out = resident.decompress_resident(blob, lanes=128)
     assert np.asarray(out).tobytes() == data
 
 
@@ -244,7 +236,7 @@ def test_decompress_resident_host_fallback():
     data = corpus.texty(2200, seed=33)
     blob = sqz_tpu.compress(data, fmt="sqz4", engine="native",
                             blocks=True, blk_bits=10, checksum=False)
-    out = resident.decompress_resident(blob, lanes=128, interpret=True)
+    out = resident.decompress_resident(blob, lanes=128)
     assert np.asarray(out).tobytes() == data
 
 
@@ -257,16 +249,13 @@ def test_decompress_resident_sharded_over_mesh():
     from sqz_tpu.parallel.shard import decompress_resident_sharded
     mesh = make_mesh(8)
     data = bytes(1024) + corpus.texty(2048, seed=41) + b"abcd" * 300
-    blob = sqz_tpu.compress_resident(data, blk_bits=10, mode="rle",
-                                     interpret=True)
-    out = decompress_resident_sharded(blob, mesh, lanes=128,
-                                      interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=10, mode="rle")
+    out = decompress_resident_sharded(blob, mesh, lanes=128)
     assert np.asarray(out).tobytes() == data
     # host-parse container: every lane flags bad, fallback covers all
     blob2 = sqz_tpu.compress(data[:2048], fmt="sqz4", engine="native",
                              blocks=True, blk_bits=10, checksum=False)
-    out2 = decompress_resident_sharded(blob2, mesh, lanes=128,
-                                       interpret=True)
+    out2 = decompress_resident_sharded(blob2, mesh, lanes=128)
     assert np.asarray(out2).tobytes() == data[:2048]
 
 
@@ -290,9 +279,9 @@ def test_checkpoint_pytree_roundtrip(tmp_path):
         "empty": jnp.zeros((0, 4), jnp.float32),
     }
     p = tmp_path / "state.sqzckpt"
-    stats = ckpt.save_pytree(tree, p, blk_bits=10, interpret=True)
+    stats = ckpt.save_pytree(tree, p, blk_bits=10)
     assert stats["raw_bytes"] > 0 and stats["compressed_bytes"] > 0
-    back = ckpt.load_pytree(p, interpret=True)
+    back = ckpt.load_pytree(p)
     flat_a, td_a = __import__("jax").tree_util.tree_flatten(tree)
     flat_b, td_b = __import__("jax").tree_util.tree_flatten(back)
     assert td_a == td_b
@@ -303,7 +292,6 @@ def test_checkpoint_pytree_roundtrip(tmp_path):
 
 def test_cli_resident_compress_roundtrip(tmp_path, monkeypatch):
     from sqz_tpu.__main__ import main as cli_main
-    monkeypatch.setenv("SQZ_RESIDENT_INTERPRET", "1")
     data = bytes(400) + corpus.texty(500, seed=21)
     src = tmp_path / "in.bin"
     dst = tmp_path / "out.sqzt"
@@ -320,7 +308,7 @@ def test_resident_group_payload_fetch_bit_exact():
     download + unpack must yield the native coder's exact bytes."""
     import jax.numpy as jnp
 
-    from sqz_tpu.ops import sqz4_pallas as sp
+    from sqz_tpu.ops import coder
     bs, B, NB = 256, 128, 3
     data = corpus.texty(NB * bs, seed=11)
     arr = np.frombuffer(data, np.uint8).reshape(NB, bs)
@@ -328,12 +316,12 @@ def test_resident_group_payload_fetch_bit_exact():
     full[:NB] = arr
     lengths = np.zeros((B,), np.int32)
     lengths[:NB] = bs
-    eargs = resident.encode_group_args(8, interpret=True)
+    eargs = resident.encode_group_args(8)
     words, lens = resident.encode_literal_group(
         jnp.asarray(full), jnp.asarray(lengths), **eargs)
     lens_np = np.asarray(lens)
-    payloads = sp.unpack_group_payloads(
-        sp.fetch_words_trimmed(words, lens_np), lens_np, NB)
+    payloads = coder.unpack_group_payloads(
+        coder.fetch_words_trimmed(words, lens_np), lens_np, NB)
     for b in range(NB):
         assert payloads[b] == native.sqz4_compress_payload(
             arr[b].tobytes(), 1 << 8, lz=False), f"block {b}"
@@ -373,14 +361,14 @@ def test_checkpoint_pytree_sharded_over_mesh(tmp_path):
         "step": jnp.asarray(7, jnp.int32),
     }
     p = tmp_path / "sharded.sqzckpt"
-    stats = ckpt.save_pytree(tree, p, blk_bits=10, interpret=True,
+    stats = ckpt.save_pytree(tree, p, blk_bits=10,
                              mesh=mesh)
     assert stats["compressed_bytes"] > 0
     p1 = tmp_path / "single.sqzckpt"
-    ckpt.save_pytree(tree, p1, blk_bits=10, interpret=True)
+    ckpt.save_pytree(tree, p1, blk_bits=10)
     assert p.read_bytes() == p1.read_bytes(), \
         "sharded save must produce the identical container"
-    back = ckpt.load_pytree(p, interpret=True, mesh=mesh)
+    back = ckpt.load_pytree(p, mesh=mesh)
     import jax as _jax
     flat_a, td_a = _jax.tree_util.tree_flatten(tree)
     flat_b, td_b = _jax.tree_util.tree_flatten(back)
@@ -404,25 +392,24 @@ def test_rle_far_zero_cell_copy_roundtrip():
     cells[2] = 0                       # isolated zero: stays literal
     cells[5] = 0                       # far copy of cell 2 (dist 3*128)
     data = cells.reshape(-1).tobytes()
-    payloads = resident.encode_rle_blocks(data, 10, lanes=128,
-                                          interpret=True)
+    payloads = resident.encode_rle_blocks(data, 10, lanes=128)
     assert native.sqz4_decompress_payload(payloads[0], bs) == data
-    toks, _pairs = resident._rle_tokens_from_blocks(
+    toks = resident._rle_tokens_from_blocks(
         jnp.asarray(np.frombuffer(data, np.uint8).reshape(1, bs)),
         jnp.asarray(np.asarray([bs], np.int32)), 96)
     t = np.asarray(toks)[0, :, 0]
     assert t[5] == (128 | (1 << 8) | (9 << 9) | (384 << 16)), hex(t[5])
-    blob = sqz_tpu.compress_resident(data, blk_bits=10, interpret=True)
-    out = sqz_tpu.decompress_resident(blob, interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=10)
+    out = sqz_tpu.decompress_resident(blob)
     assert np.asarray(out).tobytes() == data
 
 
 def _craft_cell_stream(cells: np.ndarray, cell_kinds):
-    """Hand-pack a cell-parsed sqz4 payload through the token kernel:
+    """Hand-pack a cell-parsed sqz4 payload through the device encoder:
     cell_kinds[i] is None (literal cell) or a dist (far copy token)."""
     import jax.numpy as jnp
 
-    from sqz_tpu.ops import sqz4_pallas as sp
+    from sqz_tpu.ops import coder
     nc = cells.shape[0]
     bs = nc * 128
     B = 128
@@ -441,26 +428,23 @@ def _craft_cell_stream(cells: np.ndarray, cell_kinds):
     lits = resident._pack_literal_words(jnp.asarray(blocks),
                                         max(96, bs // 4))
     cap_words = resident.rle_group_args(10)["cap_words"]
-    words, lens = sp._encode_tok_pallas(jnp.asarray(toks), lits, 1024,
-                                        cap_words, True, False,
-                                        lit_skip=True)
+    words, lens = coder.encode(jnp.asarray(toks), lits, cap_words,
+                               lit_skip=True)
     lens_np = np.asarray(lens)
-    return sp.unpack_group_payloads(
-        sp.fetch_words_trimmed(words, lens_np), lens_np, 1)
+    return coder.unpack_group_payloads(
+        coder.fetch_words_trimmed(words, lens_np), lens_np, 1)
 
 
 def _decode_rle_one(payloads, bs):
     import jax.numpy as jnp
 
-    from sqz_tpu.ops import sqz4_pallas as sp
-    plan = sp.plan_decode_dispatch(128, 10, lanes=128, slots=1,
-                                   interpret=True)
+    from sqz_tpu.ops import coder
+    dims = coder.decode_dims(10)
     buf, plens, szs, _over = resident.pack_payload_group(
-        payloads, [bs], plan["Pw"], 128)
+        payloads, [bs], dims["Pw"], 128)
     return resident.decode_rle_group(
-        jnp.asarray(buf), jnp.asarray(plens), jnp.asarray(szs),
-        Pw=plan["Pw"], t_max=plan["t_max"], lw=plan["lw"], tw=plan["tw"],
-        mw=plan["mw"], bs=bs, interpret=True, wide=False)
+        jnp.asarray(buf), jnp.asarray(plens), jnp.asarray(szs), bs=bs,
+        **dims)
 
 
 def test_rle_far_copy_literal_source_assembles_on_device():
@@ -502,7 +486,7 @@ def test_rle_far_copy_nonliteral_source_flags_bad():
     _blocks, _counts, bad = _decode_rle_one(payloads, bs)
     assert bool(np.asarray(bad)[0])
     blob = sqzt.pack(SQZT_FORMAT_SQZ4, 15, 10, bs, payloads, None)
-    out = sqz_tpu.decompress_resident(blob, interpret=True)
+    out = sqz_tpu.decompress_resident(blob)
     assert np.asarray(out).tobytes() == data   # host fallback exact
 
 
@@ -521,27 +505,24 @@ def test_rle_generic_dedup_roundtrip_and_ratio():
     cells[6] = cells[0]                # earliest source stays cell 0
     cells[7] = cells[2]                # second content group
     data = cells.reshape(-1).tobytes()
-    toks, _pairs = resident._rle_tokens_from_blocks(
+    toks = resident._rle_tokens_from_blocks(
         jnp.asarray(np.frombuffer(data, np.uint8).reshape(1, bs)),
         jnp.asarray(np.asarray([bs], np.int32)), 96)
     t = np.asarray(toks)[0, :, 0]
     assert t[4] == (128 | (1 << 8) | (10 << 9) | (512 << 16)), hex(t[4])
     assert t[6] == (128 | (1 << 8) | (10 << 9) | (768 << 16)), hex(t[6])
     assert t[7] == (128 | (1 << 8) | (10 << 9) | (640 << 16)), hex(t[7])
-    payloads = resident.encode_rle_blocks(data, 10, lanes=128,
-                                          interpret=True)
+    payloads = resident.encode_rle_blocks(data, 10, lanes=128)
     assert native.sqz4_decompress_payload(payloads[0], bs) == data
-    blob = sqz_tpu.compress_resident(data, blk_bits=10, interpret=True)
-    out = sqz_tpu.decompress_resident(blob, interpret=True)
+    blob = sqz_tpu.compress_resident(data, blk_bits=10)
+    out = sqz_tpu.decompress_resident(blob)
     assert np.asarray(out).tobytes() == data
-    lit = resident.encode_literal_blocks(data, 10, lanes=128,
-                                         interpret=True)
+    lit = resident.encode_literal_blocks(data, 10, lanes=128)
     assert sum(len(p) for p in payloads) < sum(len(p) for p in lit)
 
 
 def test_cli_ckpt_save_load_roundtrip(tmp_path, monkeypatch):
     from sqz_tpu.__main__ import main as cli_main
-    monkeypatch.setenv("SQZ_RESIDENT_INTERPRET", "1")
     rng = np.random.default_rng(12)
     sparse = np.zeros((60, 50), np.float32)
     sparse[::7] = 1.5
@@ -559,17 +540,17 @@ def test_cli_ckpt_save_load_roundtrip(tmp_path, monkeypatch):
 
 def test_sharded_resident_guards_match_unsharded():
     """The mesh entry point applies the same blk_bits guards as the
-    unsharded path: tiny blocks degrade rle -> lit, blk_bits > 16
-    rejects."""
+    unsharded path: tiny blocks degrade rle -> lit, blk_bits past the
+    resident maximum rejects."""
     from sqz_tpu.parallel.mesh import make_mesh
     from sqz_tpu.parallel.shard import encode_resident_sharded
     mesh = make_mesh(8)
     data = corpus.texty(900, seed=1)
-    got = encode_resident_sharded(data, 6, mesh, mode="rle", lanes=128,
-                                  interpret=True)
-    want = resident.encode_resident_blocks(data, 6, "rle", lanes=128,
-                                           interpret=True)
+    got = encode_resident_sharded(data, 6, mesh, mode="rle", lanes=128)
+    want = resident.encode_resident_blocks(data, 6, "rle", lanes=128)
     assert got == want
+    bad = resident.MAX_BLK_BITS + 1
     with pytest.raises(ValueError):
-        encode_resident_sharded(data, 17, mesh, mode="lit", lanes=128,
-                                interpret=True)
+        encode_resident_sharded(data, bad, mesh, mode="lit", lanes=128)
+    with pytest.raises(ValueError):
+        resident.encode_resident_blocks(data, bad, "lit")

@@ -1,6 +1,7 @@
-"""TPU engine (device codec paths): bit-exactness vs the oracle payloads and
-full API round-trips through the sqzt container. Runs on the virtual CPU
-backend (conftest); the same code path runs on real TPU for bench."""
+"""The device engine (engine="tpu"): bit-exactness vs the oracle payloads
+and full API round-trips through the sqzt container. Runs on the virtual
+CPU backend (conftest) through the coders' CPU target; chip_smoke.py runs
+the same code path on a GPU."""
 
 import numpy as np
 import pytest

@@ -109,27 +109,28 @@ def test_warm_dictionary_reach():
 
 @pytest.mark.parametrize("fmt", ["sqz4", "squeeze"])
 def test_warm_tpu_engine_matches_native(fmt):
-    """The TPU engine (XLA scan paths on the CPU test backend) must emit
-    byte-identical warm containers and decode them."""
+    """The device engine (its coders' CPU target here) must emit
+    byte-identical warm containers for the same parse and decode them."""
     data = _load("laozi.txt", 12288)
     warm_n = sqz_tpu.compress(data, fmt=fmt, engine="native", win_bits=11,
-                              blocks=True, blk_bits=11, warm=True)
+                              blocks=True, blk_bits=11, warm=True,
+                              parse="exact")
     warm_t = sqz_tpu.compress(data, fmt=fmt, engine="tpu", win_bits=11,
-                              blocks=True, blk_bits=11, warm=True)
+                              blocks=True, blk_bits=11, warm=True,
+                              parse="exact")
     assert warm_t == warm_n
     assert sqz_tpu.decompress(warm_t, engine="tpu") == data
 
 
 def test_warm_pallas_kernels_interpret():
-    """The seeded Mosaic kernels (interpret mode off-TPU): the all-seeded
+    """The device coders' seeded lanes (CPU target): the all-seeded
     encode pass matches per-block seeded native encodes; decode reproduces
     the data via the shared dictionary."""
     from sqz_tpu.api import _warm_dictionary
-    from sqz_tpu.ops import sqz4_pallas as sp
+    from sqz_tpu.ops import coder
     data = _load("laozi.txt", 3072)
-    got = sp.encode_data_full(data, 10, 1 << 10, True, cap=(1 << 10) + 2048,
-                              lanes=128, warm=True, interpret=True,
-                              parse="exact")
+    got = coder.encode_data(data, 10, 1 << 10, True, cap=(1 << 10) + 2048,
+                            lanes=2, warm=True, parse="exact")
     blk0, seed = native.sqz4_decompress_payload(got[0], 1024,
                                                 return_state=True)
     assert blk0 == data[:1024]
@@ -139,7 +140,7 @@ def test_warm_pallas_kernels_interpret():
             data[b * 1024:(b + 1) * 1024], 1 << 10, seed=seed,
             dictionary=dictionary)
         assert got[b] == want, f"block {b} seeded encode mismatch"
-    outs = sp.decode_groups(got[1:], [1024, 1024], 10, interpret=True,
+    outs = coder.decode_groups(got[1:], [1024, 1024], 10,
                             seed=seed, dictionary=dictionary)
     assert blk0 + b"".join(outs) == data
 
